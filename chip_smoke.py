@@ -1,13 +1,17 @@
 """Smoke test of the PyTorch port (sqlp_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                       # every phase, as a check
-    python3 chip_smoke.py --iters 300 --phases device,b1,b3,main,cli
+    python3 chip_smoke.py --iters 300 --rep-iters 100 \
+        --phases device,b1,b2,b3,main,replicated,cli,cli_rep
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
-against its plain PyTorch version at the shapes the main path gives it,
-drives the main path (SD on ssn at the flagship CLI settings, then the
-Monte-Carlo upper bound over 4096 scenarios) with the kernels' launch
-counts reset just before and read just after, and runs the lands CLI
+against its plain PyTorch version at the shapes the paths give it, and
+drives two paths with the kernels' launch counts reset just before and
+read just after each: the main path (SD on ssn at the flagship CLI
+settings, then the Monte-Carlo upper bound over 4096 scenarios) and the
+replicated path (8 lockstep SD replications on ssn under the
+restart-to-average PDHG scheme, the compromise decision, its stratified
+Monte-Carlo bound). It then runs the lands CLI, single and replicated,
 against the known optimum 381.8533. Any failed phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
@@ -131,41 +135,53 @@ def _pdhg_case(name, B, dtype, per_el_q=False, seed=0):
             L.contiguous(), kh, Yc.contiguous(), Lc.contiguous())
 
 
-def phase_b1(results):
+# phase -> (wrapper in ops/cuda/pdhg_kernel.py, operands it takes of the
+# 13 that _pdhg_case builds: the average round has no step count/anchors)
+_PDHG_PHASES = {"b1": ("pdhg_halpern_round", 13),
+                "b2": ("pdhg_average_round", 10)}
+
+
+def phase_pdhg(results, phase):
+    """One PDHG round kernel against its plain version, f32 and f64, at
+    the shapes of the SD step (B = 2EB), the MC panel (B = 4096), storm,
+    lands and per-element q."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
+    name, n_args = _PDHG_PHASES[phase]
+    kernel = getattr(pk, name)
+    plain = getattr(pk, name + "_ref")
     n_inner = 80
     worst = 0.0
-    for name, B, per_el in (("lands", 8, False), ("ssn", 2, False),
+    for inst, B, per_el in (("lands", 8, False), ("ssn", 2, False),
                             ("ssn", 4096, False), ("storm", 2, False),
                             ("ssn", 2, True)):
         for dtype in (torch.float32, torch.float64):
-            args = _pdhg_case(name, B, dtype, per_el_q=per_el)
-            out = pk.pdhg_halpern_round(*args, n_inner)
+            args = _pdhg_case(inst, B, dtype, per_el_q=per_el)[:n_args]
+            out = kernel(*args, n_inner)
             torch.cuda.synchronize()
-            ref = pk.pdhg_halpern_round_ref(*args, n_inner)
+            ref = plain(*args, n_inner)
             torch.cuda.synchronize()
             abs_err = max(float((o - r).abs().max())
                           for o, r in zip(out, ref))
             dname = str(dtype).replace("torch.", "")
             ok, err = agree(out, ref, dname)
             reps = 3 if B >= 1024 else 20
-            ms = time_ms(lambda: pk.pdhg_halpern_round(*args, n_inner), reps)
-            plain_ms = time_ms(
-                lambda: pk.pdhg_halpern_round_ref(*args, n_inner), reps)
-            log(f"[b1] {name} B={B} q={'per-el' if per_el else 'shared'} "
-                f"{dname}: max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
+            ms = time_ms(lambda: kernel(*args, n_inner), reps)
+            plain_ms = time_ms(lambda: plain(*args, n_inner), reps)
+            log(f"[{phase}] {inst} B={B} "
+                f"q={'per-el' if per_el else 'shared'} {dname}: "
+                f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
                 f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"pdhg_halpern_round disagrees with its "
-                                     f"plain version on {name} B={B} {dname}")
-            if dtype == torch.float32 and name == "ssn" and B == 2 \
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on {inst} B={B} {dname}")
+            if dtype == torch.float32 and inst == "ssn" and B == 2 \
                     and not per_el:
-                results["pdhg_halpern_round"].update(ms=ms, plain_ms=plain_ms)
+                results[name].update(ms=ms, plain_ms=plain_ms)
             worst = max(worst, abs_err)
-    results["pdhg_halpern_round"]["max_abs_err"] = worst
+    results[name]["max_abs_err"] = worst
 
 
 def _master_after_steps(name, steps):
@@ -240,8 +256,6 @@ def phase_main(results, iters):
     import torch
     from sqlp_tpu_torch.config import QPConfig, SDConfig, autoscale_capacities
     from sqlp_tpu_torch.models.instance import load_instance
-    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
-    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     from sqlp_tpu_torch.sd.driver import SDSolver
 
     # the flagship CLI configuration (sqlp_tpu_torch/cli.py defaults with
@@ -252,8 +266,7 @@ def phase_main(results, iters):
                    qp=QPConfig(tol=1e-7, max_iters=4_000))
     cfg = autoscale_capacities(cfg, iters)
     dev = torch.device("cuda")
-    pk.launches = 0
-    ak.launches = 0
+    _reset_counts()
     inst = load_instance("ssn", dtype=cfg.jdtype, device=dev)
     solver = SDSolver(inst, cfg, x0=np.zeros(inst.n1), seed=0)
     torch.cuda.synchronize()
@@ -266,7 +279,7 @@ def phase_main(results, iters):
                                    seed=1)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t1
-    counts = {"pdhg_halpern_round": pk.launches, "admm_round": ak.launches}
+    counts = _counts()
     lb = solver.lower_estimate
     log(f"[main] ssn {iters} iters in {sd_s:.2f}s ({iters / sd_s:.2f} it/s)"
         f" lb_est={lb:.6f} mc_ub={ub:.6f} +- {hw:.4f} (N={n}, "
@@ -277,13 +290,99 @@ def phase_main(results, iters):
             "qp_iters", "qp_err", "qp_converged", "n_duals", "n_cuts_live",
             "crossover_accepted")))
     log(f"[main] launches: {json.dumps(counts)}")
-    for k, v in counts.items():
-        results[k]["launches"] = v
+    for k in ("pdhg_halpern_round", "admm_round"):
+        results[k]["launches"] = counts[k]
     if not all(math.isfinite(v) for v in (lb, ub, hw)):
         raise AssertionError(f"non-finite bounds lb={lb} ub={ub} hw={hw}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in ("pdhg_halpern_round", "admm_round")
+               if counts[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+
+
+def _reset_counts():
+    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+    pk.launches = 0
+    pk.average_launches = 0
+    ak.launches = 0
+
+
+def _counts():
+    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+    return {"pdhg_halpern_round": pk.launches,
+            "pdhg_average_round": pk.average_launches,
+            "admm_round": ak.launches}
+
+
+def phase_replicated(results, iters):
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.config import (PDHGConfig, QPConfig, SDConfig,
+                                       autoscale_capacities)
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd.compromise import compromise_decision
+    from sqlp_tpu_torch.sd.driver import SDReplications
+
+    # the flagship settings under the restart-to-average scheme: every
+    # recourse solve (SD panel, MC panel, f64 rung) runs kernel B2
+    cfg = SDConfig(dtype="float32", quad_schedule="adaptive",
+                   quad_scalar_init=1e-3, max_cuts=96, scenarios_per_iter=1,
+                   pdhg=PDHGConfig(scheme="average", tol=1e-4,
+                                   max_iters=60_000),
+                   qp=QPConfig(tol=1e-7, max_iters=4_000))
+    cfg = autoscale_capacities(cfg, iters)
+    dev = torch.device("cuda")
+    R = 8
+    _reset_counts()
+    inst = load_instance("ssn", dtype=cfg.jdtype, device=dev)
+    reps = SDReplications(inst, cfg, n_replications=R,
+                          x0=np.zeros(inst.n1), seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = reps.run(iters)
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    x_comp, info = compromise_decision(inst, reps.states, reps.especs,
+                                       rho=1.0, qp_config=cfg.qp,
+                                       obj_scale=reps.obj_scale)
+    comp_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    ub, hw, n = reps.evaluate_ci(x=x_comp, min_samples=4096,
+                                 max_samples=4096, seed=1,
+                                 sampling="stratified")
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t2
+    counts = _counts()
+    lbs = reps.lower_estimates
+    log(f"[replicated] ssn R={R} x {iters} iters in {sd_s:.2f}s "
+        f"({iters / sd_s:.3f} it/s, {R * iters / sd_s:.2f} "
+        f"replication-it/s)")
+    log("[replicated] lb_est per replication: "
+        + " ".join(f"{v:.6f}" for v in lbs))
+    log(f"[replicated] compromise in {comp_s:.2f}s "
+        f"(qp_converged={bool(info['qp_converged'])}, projection "
+        f"{info['projection_distance']:.3g}); mc_ub={ub:.6f} +- {hw:.4f} "
+        f"(N={n}, stratified, {eval_s:.2f}s) "
+        f"host_fallbacks={reps.host_fallback_count}")
+    log("[replicated] last step (replication 0): " + " ".join(
+        f"{k}={float(last[k][0]):.6g}" for k in (
+            "pdhg_rounds", "pdhg_iters", "pdhg_err_max", "qp_iters",
+            "qp_err", "n_duals", "n_cuts_live", "crossover_accepted")))
+    log(f"[replicated] launches: {json.dumps(counts)}")
+    results["pdhg_average_round"]["launches"] = counts["pdhg_average_round"]
+    vals = [*lbs, *x_comp, ub, hw]
+    if not all(math.isfinite(float(v)) for v in vals):
+        raise AssertionError(f"non-finite results lb={lbs} x={x_comp} "
+                             f"ub={ub} hw={hw}")
+    if counts["pdhg_average_round"] <= 0 or counts["admm_round"] <= 0:
+        raise AssertionError(f"replicated path never launched B2 or B3: "
+                             f"{counts}")
+    if counts["pdhg_halpern_round"] != 0:
+        raise AssertionError(f"replicated path launched the Halpern kernel "
+                             f"under scheme='average': {counts}")
 
 
 def phase_cli():
@@ -306,11 +405,34 @@ def phase_cli():
                              f"{LANDS_OPT}")
 
 
+def phase_cli_rep():
+    cmd = [sys.executable, "-m", "sqlp_tpu_torch", "solve", "lands",
+           "--replications", "3", "--iters", "200", "--eval-samples", "4096",
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    m = re.search(r"mc_ub_compromise=(\S+) mc_ub_average=(\S+)",
+                  proc.stdout)
+    log(f"[cli_rep] {' '.join(cmd[1:])}: rc={proc.returncode} in {dt:.1f}s "
+        f"{m.group(0) if m else proc.stderr[-2000:]}")
+    if proc.returncode != 0 or m is None:
+        raise AssertionError("lands replicated CLI run failed")
+    ub = float(m.group(1))
+    if not abs(ub - LANDS_OPT) < 6.0:
+        raise AssertionError(f"lands compromise bound {ub} not within 6 of "
+                             f"{LANDS_OPT}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=300,
                     help="SD iterations of the ssn main path")
-    ap.add_argument("--phases", default="device,b1,b3,main,cli")
+    ap.add_argument("--rep-iters", type=int, default=100,
+                    help="SD iterations of the replicated path")
+    ap.add_argument("--phases",
+                    default="device,b1,b2,b3,main,replicated,cli,cli_rep")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -328,6 +450,10 @@ def main() -> int:
             "name": "pdhg_halpern_round", "route": "cuda",
             "source": src + "pdhg_halpern_round.cu",
             "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:236"},
+        "pdhg_average_round": {
+            "name": "pdhg_average_round", "route": "cuda",
+            "source": src + "pdhg_average_round.cu",
+            "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:297"},
         "admm_round": {
             "name": "admm_round", "route": "cuda",
             "source": src + "admm_round.cu",
@@ -338,14 +464,18 @@ def main() -> int:
         tp = time.perf_counter()
         if ph == "device":
             phase_device()
-        elif ph == "b1":
-            phase_b1(results)
+        elif ph in _PDHG_PHASES:
+            phase_pdhg(results, ph)
         elif ph == "b3":
             phase_b3(results)
         elif ph == "main":
             phase_main(results, args.iters)
+        elif ph == "replicated":
+            phase_replicated(results, args.rep_iters)
         elif ph == "cli":
             phase_cli()
+        elif ph == "cli_rep":
+            phase_cli_rep()
         else:
             raise ValueError(f"unknown phase {ph}")
         log(f"[{ph}] phase done in {time.perf_counter() - tp:.1f}s")

@@ -1,15 +1,18 @@
 """Command-line entry point of the PyTorch port.
 
-Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-189, the parser
-:341-470), the ``solve`` subcommand only:
+Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-189,
+``_solve_replicated`` :192-251 without ``--target-gap`` / ``--certify``,
+the parser :341-470), the ``solve`` subcommand only:
 
     python -m sqlp_tpu_torch solve ssn --iters 3000 --schedule adaptive --rho 1e-3
+    python -m sqlp_tpu_torch solve lands --replications 3 --iters 200
 
 runs SD on the chosen device (``--device``, default ``cuda``; there is no
 silent CPU fallback) and ends with the Monte-Carlo upper bound and its
-confidence half-width. Flags of the reference CLI that the port does not
-carry yet are accepted by the parser and refused with the ROADMAP item
-that will bring them.
+confidence half-width; with ``--replications R`` it runs R replications in
+lockstep and ends with the compromise decision and its bound. Flags of the
+reference CLI that the port does not carry yet are accepted by the parser
+and refused with the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -23,11 +26,10 @@ import numpy as np
 # flag -> (value that means "not requested", ROADMAP item)
 _REFUSED = {
     "x0": ("zeros", "A11 (crash_x0 / extensive form)"),
-    "replications": (1, "A10 (replications + compromise)"),
     "certify": (False, "A12 (certified bounds)"),
+    "target_gap": (0.0, "A12 (certified-gap stopping)"),
     "mesh": (0, "A14 (multi-device)"),
     "proposal_sto": (None, "A13 (importance sampling proposal)"),
-    "cut_refresh": (0, "A7 (periodic cut refresh)"),
 }
 
 
@@ -43,6 +45,7 @@ def _build_config(args):
         dual_sig_bits=args.dual_sig_bits,
         scenarios_per_iter=args.batch,
         sampling=args.sampling,
+        cut_refresh_every=args.cut_refresh,
         pdhg=PDHGConfig(tol=args.sub_tol, max_iters=args.sub_iters),
         qp=QPConfig(tol=args.master_tol, max_iters=args.master_iters),
     )
@@ -56,15 +59,18 @@ def cmd_solve(args) -> int:
     from sqlp_tpu_torch.sd.driver import SDSolver
     from sqlp_tpu_torch.sd.state import default_epigraph_spec
 
+    if args.replications > 1 and (args.mesh or args.proposal_sto):
+        # the reference's own refusal (sqlp_tpu/cli.py:75-82)
+        print("error: --mesh/--shard-duals/--proposal-sto are not "
+              "supported with --replications > 1 (replications batch "
+              "on a single device program); drop one of the flags",
+              file=sys.stderr)
+        return 2
     for flag, (off, item) in _REFUSED.items():
         if getattr(args, flag) != off:
             print(f"error: --{flag.replace('_', '-')} is not ported to "
                   f"sqlp_tpu_torch yet (ROADMAP {item})", file=sys.stderr)
             return 2
-    if args.sampling != "iid":
-        print("error: --sampling other than iid is not ported yet "
-              "(ROADMAP A2)", file=sys.stderr)
-        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda requested but torch.cuda.is_available() "
@@ -84,6 +90,8 @@ def cmd_solve(args) -> int:
     if args.epi_lb is not None:
         espec = default_epigraph_spec(E, 1.0 / E, args.epi_lb,
                                       dtype=config.jdtype, device=device)
+    if args.replications > 1:
+        return _solve_replicated(args, config, inst, espec, device)
     solver = SDSolver(inst, config, espec=espec, x0=np.zeros(inst.n1),
                       seed=args.seed, n_epi=E)
     print(f"recourse lower bound: {solver.recourse_lb:.6g}"
@@ -107,12 +115,53 @@ def cmd_solve(args) -> int:
 
     ub, ub_hw, ub_n = solver.evaluate_ci(min_samples=args.eval_samples,
                                          max_samples=args.eval_samples,
-                                         seed=args.seed + 1)
+                                         seed=args.seed + 1,
+                                         sampling=args.sampling)
     print(f"done: {done} iters in {elapsed:.1f}s "
           f"({done / max(elapsed, 1e-9):.1f} it/s)", file=sys.stderr)
     print(f"lb_est={solver.lower_estimate:.6f} mc_ub={ub:.6f} "
           f"(95% +- {ub_hw:.4f}, N={ub_n})")
     print(f"x_incumbent={np.round(solver.x_incumbent, 6).tolist()}")
+    return 0
+
+
+def _solve_replicated(args, config, inst, espec, device) -> int:
+    """R SD replications in lockstep, then the compromise decision and its
+    stratified Monte-Carlo bound (sqlp_tpu/cli.py:192-251)."""
+    import torch
+
+    from sqlp_tpu_torch.sd.compromise import compromise_decision
+    from sqlp_tpu_torch.sd.driver import SDReplications
+
+    R = args.replications
+    t0 = time.time()
+    s = SDReplications(inst, config, n_replications=R, espec=espec,
+                       x0=np.zeros(inst.n1), seed=args.seed,
+                       n_epi=args.epigraphs)
+    s.run(args.iters)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    sd_s = time.time() - t0
+    print(f"SD: {R} x {args.iters} iters in {sd_s:.1f}s "
+          f"({args.iters / max(sd_s, 1e-9):.1f} it/s)", file=sys.stderr)
+    for r in range(R):
+        ub = s.evaluate(x=s.x_incumbents[r], n_samples=args.eval_samples,
+                        seed=args.seed + 10_000)
+        print(f"replication {r}: lb_est={s.lower_estimates[r]:.6f} "
+              f"mc_ub={ub:.6f}", file=sys.stderr)
+    x_comp, info = compromise_decision(
+        inst, s.states, s.especs, rho=args.compromise_rho,
+        qp_config=config.qp, obj_scale=s.obj_scale)
+    ub_comp, ub_hw, _ = s.evaluate_ci(
+        x=x_comp, min_samples=args.eval_samples,
+        max_samples=args.eval_samples, seed=args.seed + 20_000,
+        sampling="stratified")
+    ub_bar = s.evaluate(x=info["x_bar"], n_samples=args.eval_samples,
+                        seed=args.seed + 20_000)
+    print(f"done: {R} x {args.iters} iters in {time.time() - t0:.1f}s "
+          f"(compromise ub half-width {ub_hw:.4f})", file=sys.stderr)
+    print(f"mc_ub_compromise={ub_comp:.6f} mc_ub_average={ub_bar:.6f}")
+    print(f"x_compromise={np.round(x_comp, 6).tolist()}")
     return 0
 
 
@@ -151,14 +200,25 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--master-iters", type=int, default=4_000)
     ps.add_argument("--no-auto-capacity", action="store_true")
     ps.add_argument("--sampling", default="iid",
-                    choices=["iid", "antithetic", "stratified"])
+                    choices=["iid", "antithetic", "stratified"],
+                    help="scenario sampling scheme for the SD stream and "
+                         "the MC evaluation (antithetic/stratified need "
+                         "--batch > 1 for the SD stream)")
+    ps.add_argument("--cut-refresh", type=int, default=0,
+                    help="rebuild every live cut against the current pool "
+                         "every this many iterations (0: never)")
+    ps.add_argument("--replications", type=int, default=1,
+                    help="R > 1: R SD replications in lockstep, then the "
+                         "compromise decision")
+    ps.add_argument("--compromise-rho", type=float, default=1.0,
+                    help="prox weight toward the incumbent average in the "
+                         "compromise problem")
     # reference flags the port refuses for now (see _REFUSED)
     ps.add_argument("--x0", default="zeros", choices=["zeros", "crash"])
-    ps.add_argument("--replications", type=int, default=1)
     ps.add_argument("--certify", action="store_true")
+    ps.add_argument("--target-gap", type=float, default=0.0)
     ps.add_argument("--mesh", type=int, default=0)
     ps.add_argument("--proposal-sto", default=None)
-    ps.add_argument("--cut-refresh", type=int, default=0)
     ps.set_defaults(fn=cmd_solve)
     return p
 

@@ -30,8 +30,7 @@ class PDHGConfig:
     compaction: bool = True
     compact_min_batch: int = 2048
     # "halpern" (reflected Halpern, kernel pdhg_halpern_round) or
-    # "average" (restart to the Polyak average; its kernel is not ported
-    # yet, so it runs on CPU tensors only)
+    # "average" (restart to the Polyak average, kernel pdhg_average_round)
     scheme: str = "halpern"
 
 
@@ -81,11 +80,13 @@ class SDConfig:
     max_cuts: int = 96
     scenarios_per_iter: int = 1
 
-    # only "iid" is ported; the other schemes raise (ROADMAP A2)
+    # "iid", "antithetic" or "stratified" (the latter two act on batches
+    # of more than one scenario)
     sampling: str = "iid"
 
     update_incumbent_cut: bool = True
-    # periodic full-pool cut refresh: not ported yet, must stay 0
+    # rebuild every live cut against the current pool every this many
+    # iterations (0: never)
     cut_refresh_every: int = 0
     pool_dual_warm_start: bool = True
     dual_crossover: bool = True

@@ -30,27 +30,15 @@
 // independent L2 loads in flight, so the reduction loops are unrolled to
 // raise memory-level parallelism.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pdhg_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// clip that keeps NaN, as jnp.clip does
-template <typename T>
-__device__ __forceinline__ T clip(T v, T lo, T hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
+using pdhg::clip;
+using pdhg::col_products;
+using pdhg::kThreads;
+using pdhg::kWarps;
+using pdhg::row_products;
 
 template <typename T, int ROWS>
 __global__ void __launch_bounds__(kThreads)
@@ -105,15 +93,7 @@ pdhg_halpern_kernel(const T* __restrict__ K, const T* __restrict__ q,
     // primal step: threads over columns, G = q - L K
     for (int j = tid; j < n; j += kThreads) {
       T acc[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = T(0);
-#pragma unroll 8
-      for (int i = 0; i < m; ++i) {
-        const T kij = K[static_cast<size_t>(i) * n + j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          acc[r] += smem[r * stride + 4 * n + i] * kij;
-      }
+      col_products<T, ROWS>(K, smem + 4 * n, stride, m, n, j, acc);
       const T lo = lb[j];
       const T hi = ub[j];
 #pragma unroll
@@ -136,19 +116,9 @@ pdhg_halpern_kernel(const T* __restrict__ K, const T* __restrict__ q,
     __syncthreads();
     // dual step: a warp per constraint row, S = ht - Yb K^T
     for (int i = warp; i < m; i += kWarps) {
-      const T* Ki = K + static_cast<size_t>(i) * n;
       T acc[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = T(0);
-#pragma unroll 4
-      for (int j = lane; j < n; j += 32) {
-        const T kij = Ki[j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r)
-          acc[r] += kij * smem[r * stride + 3 * n + j];
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = warp_sum(acc[r]);
+      row_products<T, ROWS>(K + static_cast<size_t>(i) * n, smem + 3 * n,
+                            stride, n, lane, acc);
       if (lane == 0) {
         const bool eq = is_eq[i] != 0;
 #pragma unroll

@@ -2,12 +2,15 @@
 
 Port of record: ``sqlp_tpu/models/scenario.py`` (``ScenarioModel`` :52-89,
 ``build_scenario_model`` :92-196, ``_compute_seed_dual`` :199-257,
-``sample_values``/``sample_deltas`` :290-357, ``values_to_deltas`` :360,
-``deltas_to_rhs`` :418, ``effective_rhs_deltas`` :429, ``cost_panel``
-:447). The tables are compiled by the same host numpy code, then placed on
-the requested device. Sampling draws from an explicit ``torch.Generator``;
-it cannot reproduce the JAX PRNG stream, so the tests hand both packages
-the same numpy deltas instead. Only ``method="iid"`` is ported.
+``_uniform_panel`` :260-287, ``sample_values``/``sample_deltas``
+:290-357, ``values_to_deltas`` :360, ``deltas_to_rhs`` :418,
+``effective_rhs_deltas`` :429, ``cost_panel`` :447). The tables are
+compiled by the same host numpy code, then placed on the requested
+device. Sampling draws from an explicit ``torch.Generator``; it cannot
+reproduce the JAX PRNG stream, so the tests hand both packages the same
+numpy draws instead (the deltas, or the uniform panels in place of
+``_uniform_panel``). ``scenario_log_pdf`` / ``sample_importance`` are not
+ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -222,20 +225,65 @@ def _compute_seed_dual(sp2: StageLP, dual_system, rv_is_cost, rv_ycol,
     return np.zeros(len(r), np.float64), False
 
 
+def _uniform_panel(generator: torch.Generator, batch: int, R: int, dt,
+                   device, method: str) -> torch.Tensor:
+    """[batch, R] uniforms under a variance-reduction scheme
+    (``sqlp_tpu/models/scenario.py:260-287``):
+
+      * "iid"        — plain i.i.d. draws;
+      * "antithetic" — rows [0, B/2) i.i.d., rows [B/2, B) their
+        reflections 1 - u; odd batches fall back to iid;
+      * "stratified" — per position one draw from each of ``batch`` equal
+        strata of [0, 1), the strata shuffled independently per position
+        (Latin hypercube).
+    """
+    if method not in ("iid", "antithetic", "stratified"):
+        raise ValueError(f"unknown sampling method {method!r}")
+    if method == "antithetic" and batch % 2 == 0 and batch > 1:
+        u0 = torch.rand((batch // 2, R), generator=generator, dtype=dt,
+                        device=device)
+        return torch.cat([u0, 1.0 - u0], dim=0)
+    if method == "stratified" and batch > 1:
+        v = torch.rand((batch, R), generator=generator, dtype=dt,
+                       device=device)
+        perm = torch.argsort(torch.rand((R, batch), generator=generator,
+                                        device=device), dim=1).T
+        return (perm.to(dt) + v) / batch
+    return torch.rand((batch, R), generator=generator, dtype=dt,
+                      device=device)
+
+
 def sample_values(generator: torch.Generator, model: ScenarioModel,
-                  batch: int, method: str = "iid") -> torch.Tensor:
-    """Draw a [batch, R] panel of raw scenario values: inverse-CDF lookup
-    for discrete positions, affine maps of uniform / normal draws for the
-    others. ``generator`` must live on the model's device."""
-    if method != "iid" and batch > 1:
-        raise NotImplementedError(
-            f"sampling method {method!r} is not ported yet (ROADMAP A2: "
-            f"antithetic, stratified, LHS); use 'iid'")
+                  batch: int, method: str = "iid",
+                  complement: bool = False) -> torch.Tensor:
+    """Draw a [batch, R] panel of raw scenario values. ``generator`` must
+    live on the model's device.
+
+    Under "iid" (or a batch of one) the normal positions take their own
+    direct normal draws; the variance-reduction methods push a structured
+    uniform panel through the normal inverse CDF so the scheme carries
+    through every marginal type. ``complement=True`` returns the
+    antithetic complement of the panel the same draws would give: u ->
+    1 - u, z -> -z.
+    """
     R = model.n_rv
     dt = model.values.dtype
     dev = model.values.device
-    u = torch.rand((batch, R), generator=generator, dtype=dt, device=dev)
-    z = torch.randn((batch, R), generator=generator, dtype=dt, device=dev)
+    if method == "iid" or batch <= 1:
+        u = torch.rand((batch, R), generator=generator, dtype=dt, device=dev)
+        z = torch.randn((batch, R), generator=generator, dtype=dt,
+                        device=dev)
+        if complement:
+            u, z = 1.0 - u, -z
+    else:
+        u = _uniform_panel(generator, batch, R, dt, dev, method)
+        u_z = _uniform_panel(generator, batch, R, dt, dev, method)
+        if complement:
+            u, u_z = 1.0 - u, 1.0 - u_z
+        # clamp away exact 0 / 1 (ndtri(0 / 1) = -+inf): structured panels
+        # can land arbitrarily close to the endpoints
+        z = torch.special.ndtri(torch.clamp(u_z, 1e-7, 1.0 - 1e-7))
+    # inverse CDF: index = #{j : cdf[j] <= u}; u < cdf[0] -> 0
     idx = torch.sum(u[:, :, None] >= model.cdf[None, :, :], dim=-1)
     idx = torch.clamp(idx, 0, model.values.shape[1] - 1)
     discrete = torch.gather(
@@ -249,9 +297,11 @@ def sample_values(generator: torch.Generator, model: ScenarioModel,
 
 
 def sample_deltas(generator: torch.Generator, model: ScenarioModel,
-                  batch: int, method: str = "iid") -> torch.Tensor:
+                  batch: int, method: str = "iid",
+                  complement: bool = False) -> torch.Tensor:
     """[batch, R] panel of deltas against the template (value - base)."""
-    return sample_values(generator, model, batch, method) - model.base
+    return sample_values(generator, model, batch, method,
+                         complement) - model.base
 
 
 def values_to_deltas(model: ScenarioModel, values) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources under ``sqlp_tpu_torch/csrc/`` expose a plain C interface; they
-are compiled by ``nvcc`` for ``sm_90a`` into one shared library at first
-use and loaded with ``ctypes``. The library lands in ``build/kernels/<hash>``
+are compiled by ``nvcc`` for ``sm_90a`` at first use, one ``nvcc`` per
+source, all started together, and linked into one shared library that is
+loaded with ``ctypes``. The library lands in ``build/kernels/<hash>``
 at the repository root (git-ignored), keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here runs at import time: a CPU-only host imports every module
@@ -22,9 +23,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("pdhg_halpern_round.cu", "admm_round.cu")
+_SOURCES = ("pdhg_halpern_round.cu", "pdhg_average_round.cu",
+            "admm_round.cu")
+_HEADERS = ("pdhg_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 _lock = threading.Lock()
@@ -36,6 +39,7 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "pdhg_halpern_round": [_I] + [_P, _P, _I] + [_P] * 15 + [_I] * 4 + [_P],
+    "pdhg_average_round": [_I] + [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P],
     "admm_round": [_P] * 13 + [_I] * 4 + [_D, _D, _P],
 }
 
@@ -57,7 +61,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as fh:
             h.update(name.encode())
             h.update(fh.read())
@@ -76,15 +80,33 @@ def build() -> str:
     if os.path.isfile(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp,
-           *[os.path.join(_CSRC, s) for s in _SOURCES]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in _SOURCES:
+        obj = os.path.join(os.path.dirname(out), f"{src}.{tag}.o")
+        cmd = [nvcc, *_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = f"{out}.{tag}"
+    cmd = [nvcc, *_FLAGS, "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)       # atomic: concurrent builds agree on one file
+    for obj in objs:
+        os.remove(obj)
     build_seconds = time.perf_counter() - t0
     return out
 

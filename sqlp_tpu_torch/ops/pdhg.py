@@ -11,10 +11,10 @@ solver keeps the reference's per-element restarts, primal-weight (omega)
 adaptation, best-iterate latch, stall detection, warm starts, per-element
 Q, the batch compaction ladder and the stats dict. The ``while_loop``
 becomes a Python loop with one host read per restart round; the inner
-round of ``restart_every`` Halpern steps is the CUDA kernel
-``pdhg_halpern_round`` on the card and its plain version on the CPU
-(ops/cuda/pdhg_kernel.py). The restart-to-average scheme has no kernel
-yet and runs on CPU tensors only (ROADMAP B2).
+round of ``restart_every`` steps is a CUDA kernel on the card and its
+plain version on the CPU (ops/cuda/pdhg_kernel.py): ``pdhg_halpern_round``
+under the default Halpern scheme, ``pdhg_average_round`` under
+``scheme="average"``.
 
 Duals come back in the JuMP d(obj)/d(rhs) sign convention ('>=' rows
 >= 0, '<=' rows <= 0) that the cut math is written against.
@@ -30,7 +30,8 @@ import torch
 
 from sqlp_tpu_torch.config import PDHGConfig
 from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_L
-from sqlp_tpu_torch.ops.cuda.pdhg_kernel import pdhg_halpern_round
+from sqlp_tpu_torch.ops.cuda.pdhg_kernel import (pdhg_average_round,
+                                                 pdhg_halpern_round)
 
 _BIG = 1e30  # stand-in for +inf inside clips (keeps NaNs away)
 
@@ -165,25 +166,6 @@ def _kkt_residuals(lp: PreparedLP, ht: torch.Tensor, Y: torch.Tensor,
     return err, pobj
 
 
-def _average_round(lp, el, qrow, lb, ub, tau, sig, n_inner):
-    """Restart-to-average inner round (``sqlp_tpu/ops/pdhg.py:330-340``),
-    plain version only: its kernel (ROADMAP B2) is not ported yet."""
-    if lp.K.device.type != "cpu":
-        raise NotImplementedError(
-            "PDHGConfig.scheme='average' has no CUDA kernel yet (ROADMAP "
-            "B2, pdhg_round_pallas); use scheme='halpern' on the card")
-    Y, L = el["Y"], el["L"]
-    Ys = torch.zeros_like(Y)
-    Ls = torch.zeros_like(L)
-    for _ in range(n_inner):
-        G = qrow - L @ lp.K
-        Y1 = torch.clamp(Y - tau * G, lb, ub)
-        S = el["ht"] - (2.0 * Y1 - Y) @ lp.K.T
-        L1 = _project_dual(L + sig * S, lp.is_eq)
-        Y, L, Ys, Ls = Y1, L1, Ys + Y1, Ls + L1
-    return Y, L, [(Y, L), (Ys / n_inner, Ls / n_inner)]
-
-
 def solve_batch(lp: PreparedLP, H: torch.Tensor,
                 config: PDHGConfig = PDHGConfig(),
                 Y0: Optional[torch.Tensor] = None,
@@ -230,10 +212,10 @@ def solve_batch(lp: PreparedLP, H: torch.Tensor,
                 el["Yanc"], el["Lanc"], config.restart_every)
             cands = [(Yc, Lc)]
         else:
-            qrow = lp.q[None, :] if Qs is None else Qs
-            Ycarry, Lcarry, cands = _average_round(
-                lp, el, qrow, lb, ub, tau[:, None], sig[:, None],
-                config.restart_every)
+            Ycarry, Lcarry, Ya, La = pdhg_average_round(
+                K, lp.q if Qs is None else Qs, lb, ub, is_eq, el["ht"], tau,
+                sig, el["Y"], el["L"], config.restart_every)
+            cands = [(Ycarry, Lcarry), (Ya, La)]
 
         Yc, Lc = cands[0]
         err, _ = _kkt_residuals(lp, el["ht"], Yc, Lc, Qs)

@@ -12,6 +12,13 @@ check interval of ``check_every`` ADMM steps is the CUDA kernel
 (ops/cuda/admm_kernel.py); the ``while_loop`` becomes a Python loop with
 one host read per check interval.
 
+A leading batch axis on the operands solves that many QPs together (the
+replicated SD step's R masters, ``sqlp_tpu/sd/algorithm.py:683-695``):
+one kernel launch per check interval steps every QP still running. A QP
+that has met its stopping test is frozen, as ``jax.vmap`` of the
+reference's ``while_loop`` freezes it by a select, so each QP's result
+equals its own unbatched solve.
+
 The solve always runs in float64, on every device, as the JAX package
 does wherever f64 is native (``prox_qp.py:121-128`` with x64 on); inputs
 and outputs stay in the caller's dtype. The explicit-inverse z-update
@@ -45,35 +52,61 @@ def _nanmax(a: float, b: float) -> float:
 
 
 def _inv(M: torch.Tensor) -> torch.Tensor:
-    """Explicit inverse; a singular matrix yields NaNs (as jnp.linalg.inv
-    does) instead of raising, so the callers' finiteness guards reject
-    the candidate."""
+    """Explicit inverse over the trailing two axes; a singular matrix
+    yields NaNs (as jnp.linalg.inv does) instead of raising, so the
+    callers' finiteness guards reject the candidate."""
     Mi, info = torch.linalg.inv_ex(M)
-    return torch.where(info != 0, torch.full_like(Mi, math.nan), Mi)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(Mi, math.nan), Mi)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b, over a leading batch axis when there is one. On the CPU
+    each QP's product is taken on its own: a batched BLAS call sums in
+    another order than the unbatched one, and a batched solve is to repeat
+    each QP's unbatched arithmetic exactly. On the card one batched
+    product serves every QP."""
+    if a.dim() == 2 or a.device.type != "cpu":
+        return a @ b
+    return torch.stack([x @ y for x, y in zip(a, b)])
+
+
+def _mv(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Matrix-vector product over a leading batch axis: [R, m, n] x
+    [R, n] -> [R, m] (as :func:`_matmul`)."""
+    if M.device.type != "cpu":
+        return (M @ x[..., None])[..., 0]
+    return torch.stack([m @ v for m, v in zip(M, x)])
+
+
+def _mtv(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Transposed product: [R, m, n]' x [R, m] -> [R, n]."""
+    return _mv(M.transpose(-1, -2), x)
 
 
 def scale_qp(p_diag, g, A, l, u):
     """OSQP-style problem scaling (``prox_qp.py:141-166``): Ruiz-equilibrate
-    A and normalize the cost. Returns (As, dr, dc, cost_s, p_s, g_s, l_s,
-    u_s, lc, uc); lc / uc carry finite sentinels for infinite bounds."""
-    mA, nz = A.shape
+    A and normalize the cost, over any leading batch axes. Returns (As,
+    dr, dc, cost_s, p_s, g_s, l_s, u_s, lc, uc); lc / uc carry finite
+    sentinels for infinite bounds."""
+    mA, nz = A.shape[-2:]
     dtype, dev = A.dtype, A.device
     one = torch.ones((), dtype=dtype, device=dev)
     As = A
-    dr = torch.ones(mA, dtype=dtype, device=dev)
-    dc = torch.ones(nz, dtype=dtype, device=dev)
+    dr = torch.ones(A.shape[:-1], dtype=dtype, device=dev)
+    dc = torch.ones(A.shape[:-2] + (nz,), dtype=dtype, device=dev)
     for _ in range(10):
-        rn = torch.sqrt(torch.amax(torch.abs(As), dim=1))
+        rn = torch.sqrt(torch.amax(torch.abs(As), dim=-1))
         rn = torch.where(rn > 0, rn, one)
-        As = As / rn[:, None]
-        cn = torch.sqrt(torch.amax(torch.abs(As), dim=0))
+        As = As / rn[..., :, None]
+        cn = torch.sqrt(torch.amax(torch.abs(As), dim=-2))
         cn = torch.where(cn > 0, cn, one)
-        As = As / cn[None, :]
+        As = As / cn[..., None, :]
         dr, dc = dr / rn, dc / cn
     g_s = dc * g
-    cost_s = 1.0 / torch.clamp_min(torch.amax(torch.abs(g_s)), 1.0)
-    p_s = cost_s * dc * dc * p_diag
-    g_s = cost_s * g_s
+    cost_s = 1.0 / torch.clamp_min(torch.amax(torch.abs(g_s), dim=-1), 1.0)
+    p_s = cost_s[..., None] * dc * dc * p_diag
+    g_s = cost_s[..., None] * g_s
     l_s = dr * l
     u_s = dr * u
     lc = torch.where(torch.isfinite(l_s), l_s, torch.full_like(l_s, -1e30))
@@ -82,18 +115,18 @@ def scale_qp(p_diag, g, A, l, u):
             lc.contiguous(), uc.contiguous())
 
 
-def _rho_vector(is_eq, rho_s: float, eq_scale: float, dtype) -> torch.Tensor:
-    """Per-row ADMM penalty: equality rows get ``eq_scale`` times more."""
-    mA = is_eq.shape[0]
-    return torch.where(
-        is_eq, torch.full((mA,), rho_s * eq_scale, dtype=dtype,
-                          device=is_eq.device),
-        torch.full((mA,), rho_s, dtype=dtype, device=is_eq.device))
+def _rho_vector(is_eq, rho_s, eq_scale: float, dtype) -> torch.Tensor:
+    """Per-row ADMM penalty: equality rows get ``eq_scale`` times more.
+    ``rho_s`` is a float, or one value per QP of a batch."""
+    rho = torch.as_tensor(rho_s, dtype=dtype, device=is_eq.device)
+    rho = rho[..., None].expand(is_eq.shape)
+    return torch.where(is_eq, rho * eq_scale, rho).contiguous()
 
 
 def _factor(As, p_s, sigma: float, rho_vec):
     """(M, Minv) of the z-update at penalty rho_vec."""
-    M = torch.diag(p_s + sigma) + (As.T * rho_vec[None, :]) @ As
+    M = torch.diag_embed(p_s + sigma) + _matmul(
+        As.transpose(-1, -2) * rho_vec[..., None, :], As)
     return M.contiguous(), _inv(M).contiguous()
 
 
@@ -123,8 +156,29 @@ def solve_qp(p_diag: torch.Tensor, g: torch.Tensor, A: torch.Tensor,
     p_diag [nz], g [nz], A [mA, nz] (zero rows allowed), l, u [mA]
     (+-inf allowed), is_eq [mA] bool; z0, mu0 optional warm start;
     rho_init optional starting penalty. Returns (z, mu, stats).
+
+    With a leading batch axis (A [R, mA, nz], the vectors [R, ...],
+    ``rho_init`` [R]; ``is_eq`` may stay [mA]) the R QPs are solved
+    together and every output carries the R axis; each QP's result is its
+    unbatched solve.
     """
-    mA, nz = A.shape
+    if A.dim() == 2:
+        one = lambda t: None if t is None else t[None]
+        rho1 = None if rho_init is None else \
+            torch.as_tensor(rho_init).reshape(1)
+        z, mu, stats = _solve_batched(
+            p_diag[None], g[None], A[None], l[None], u[None], is_eq[None],
+            config, one(z0), one(mu0), rho1)
+        return z[0], mu[0], {k: v[0] for k, v in stats.items()}
+    return _solve_batched(p_diag, g, A, l, u,
+                          is_eq.expand(A.shape[:-1]), config, z0, mu0,
+                          rho_init)
+
+
+def _solve_batched(p_diag, g, A, l, u, is_eq, config: QPConfig, z0, mu0,
+                   rho_init):
+    """:func:`solve_qp` on a batch of R QPs (every operand [R, ...])."""
+    R, mA, nz = A.shape
     out_dtype = A.dtype
     dev = A.device
     dtype = torch.float64
@@ -138,134 +192,184 @@ def solve_qp(p_diag: torch.Tensor, g: torch.Tensor, A: torch.Tensor,
     As, dr, dc, cost_s, p_s, g_s, l_s, u_s, lc, uc = scale_qp(p_diag, g, A,
                                                                l, u)
 
-    z_w = torch.zeros(nz, dtype=dtype, device=dev) if z0 is None \
+    z_w = torch.zeros((R, nz), dtype=dtype, device=dev) if z0 is None \
         else z0 / dc
-    mu_w = torch.zeros(mA, dtype=dtype, device=dev) if mu0 is None \
-        else cost_s * mu0 / dr
+    mu_w = torch.zeros((R, mA), dtype=dtype, device=dev) if mu0 is None \
+        else cost_s[:, None] * mu0 / dr
     n_rounds = max(1, config.max_iters // config.check_every)
 
-    def rho_vector(rho_s: float) -> torch.Tensor:
-        return _rho_vector(is_eq, rho_s, config.rho_eq_scale, dtype)
-
-    def factor(rho_s: float):
-        return _factor(As, p_s, sig, rho_vector(rho_s))
-
-    def residuals(z, zeta, mu):
+    def residuals(ids, z, zeta, mu):
         """Per-row relative primal / per-component dual residuals in the
-        original problem (``prox_qp.py:208-223``)."""
-        zo = dc * z
-        muo = (dr / cost_s) * mu
-        Az = A @ zo
-        zetao = zeta / dr
+        original problem (``prox_qp.py:208-223``), one pair per QP."""
+        zo = dc[ids] * z
+        muo = (dr[ids] / cost_s[ids, None]) * mu
+        Az = _mv(A[ids], zo)
+        zetao = zeta / dr[ids]
         pscale = 1.0 + torch.maximum(torch.abs(Az), torch.abs(zetao))
-        pres = torch.amax(torch.abs(Az - zetao) / pscale)
-        grad = p_diag * zo + g
-        Atmu = A.T @ muo
+        pres = torch.amax(torch.abs(Az - zetao) / pscale, dim=-1)
+        grad = p_diag[ids] * zo + g[ids]
+        Atmu = _mtv(A[ids], muo)
         dscale = 1.0 + torch.maximum(torch.abs(grad), torch.abs(Atmu))
-        dres = torch.amax(torch.abs(grad + Atmu) / dscale)
+        dres = torch.amax(torch.abs(grad + Atmu) / dscale, dim=-1)
         return pres, dres
 
-    def _run(z, mu, rho_s: float):
-        """Full ADMM loop from one start; returns the best check-point
-        iterate, its error, the round count and the adapted rho. Scalars
-        of the loop control live on the host (one read per interval)."""
-        zeta = torch.clamp(As @ z, lc, uc)
-        M, Mi = factor(rho_s)
-        err = _INF
-        err_best = _INF
-        err_mark = _INF
-        winct = restarts = hard_ct = rounds = 0
-        stalled = False
-        z_best, mu_best = z, mu
-        while rounds < n_rounds and err > eff_tol and not stalled:
-            rho_vec = rho_vector(rho_s)
-            z, zeta, mu = admm_round(As, M, Mi, g_s, lc, uc, rho_vec,
-                                     z.contiguous(), zeta.contiguous(),
-                                     mu.contiguous(), config.check_every,
-                                     config.over_relax, config.sigma)
-            pres_t, dres_t = residuals(z, zeta, mu)
-            finite_t = (torch.isfinite(z).all() & torch.isfinite(zeta).all()
-                        & torch.isfinite(mu).all())
+    def _run(ids: torch.Tensor, z, mu, rho_s: list):
+        """Full ADMM loop for the QPs ``ids`` from one start each; returns
+        the best check-point iterates, their errors, round counts and
+        adapted rhos. The stopping and adaptation scalars of each QP live
+        on the host (one read per interval for the whole batch); a QP
+        whose loop has ended is no longer stepped."""
+        n = len(rho_s)
+        As_r, g_r, lc_r, uc_r = As[ids], g_s[ids], lc[ids], uc[ids]
+        eq_r = is_eq[ids]
+        zeta = torch.clamp(_mv(As_r, z), lc_r, uc_r)
+        M, Mi = _factor(As_r, p_s[ids], sig,
+                        _rho_vector(eq_r, rho_s, config.rho_eq_scale, dtype))
+        err = [_INF] * n
+        err_best = [_INF] * n
+        err_mark = [_INF] * n
+        winct = [0] * n
+        restarts = [0] * n
+        hard_ct = [0] * n
+        rounds = [0] * n
+        stalled = [False] * n
+        z_best, mu_best = z.clone(), mu.clone()
+        while True:
+            act = [b for b in range(n) if rounds[b] < n_rounds
+                   and err[b] > eff_tol and not stalled[b]]
+            if not act:
+                break
+            full = len(act) == n
+            at = torch.as_tensor(act, device=dev)
+            pick = (lambda t: t) if full else (lambda t: t[at])
+            rho_vec = _rho_vector(pick(eq_r), [rho_s[b] for b in act],
+                                  config.rho_eq_scale, dtype)
+            za, zetaa, mua = admm_round(
+                pick(As_r), pick(M), pick(Mi), pick(g_r), pick(lc_r),
+                pick(uc_r), rho_vec, pick(z).contiguous(),
+                pick(zeta).contiguous(), pick(mu).contiguous(),
+                config.check_every, config.over_relax, config.sigma)
+            pres_t, dres_t = residuals(pick(ids), za, zetaa, mua)
+            finite_t = (torch.isfinite(za).all(-1)
+                        & torch.isfinite(zetaa).all(-1)
+                        & torch.isfinite(mua).all(-1))
             vals = torch.stack([pres_t, dres_t, finite_t.to(dtype)]).tolist()
-            pres, dres, finite = vals[0], vals[1], vals[2] > 0.5
-            err = _nanmax(pres, dres)
-            if err < err_best:
-                z_best, mu_best = z, mu
-            err_best = _nanmin(err, err_best)
-            winct += 1
-            window_done = winct >= config.stall_rounds
-            improved = err_best < err_mark * 0.97
-            stalled_win = window_done and not improved
-            if window_done:
-                err_mark = err_best
-                winct = 0
-                hard_ct = 0 if improved else hard_ct + 1
-            hard_stalled = (config.stall_hard_windows > 0
-                            and hard_ct >= config.stall_hard_windows)
-            near_tol = err_best <= config.stall_tol_factor * eff_tol
-            stalled_win = stalled_win and near_tol
-            if stalled_win:
-                restarts += 1
-            stalled = (stalled_win and restarts > config.stall_restarts) \
-                or hard_stalled
-            # OSQP rho adaptation toward the lagging residual; a stalled
-            # window forces at least a decade (prox_qp.py:309-325)
-            ratio = math.sqrt((pres + 1e-20) / (dres + 1e-20))
-            adapt = ratio > 2.0 or ratio < 0.5
-            alt = 10.0 if restarts % 2 == 0 else 0.1
-            big = _nanmax(ratio, 10.0) if ratio >= 1.0 \
-                else _nanmin(ratio, 0.1)
-            forced = big if abs(math.log(ratio)) > 0.2 else alt
-            scale = forced if stalled_win else (ratio if adapt else 1.0)
-            rho_s = min(max(rho_s * scale, 1e-6), 1e6)
-            if not finite:
-                # self-healing: restart this solve from zeros
-                z = torch.zeros_like(z)
-                zeta = torch.zeros_like(zeta)
-                mu = torch.zeros_like(mu)
-                err = _INF
-                winct = 0
-                err_mark = _INF
-                stalled = False
-                rho_s = config.rho
-                hard_ct = 0
-            if scale != 1.0 or not finite:
-                M, Mi = factor(rho_s)
-            rounds += 1
-        use_best = err_best < err
-        zr = z_best if use_best else z
-        mur = mu_best if use_best else mu
-        return zr, mur, _nanmin(err_best, err), rounds, rho_s
+            better, heal, refac = [], [], []
+            for j, b in enumerate(act):
+                pres, dres, finite = vals[0][j], vals[1][j], vals[2][j] > 0.5
+                e = _nanmax(pres, dres)
+                if e < err_best[b]:
+                    better.append(j)
+                err_best[b] = _nanmin(e, err_best[b])
+                winct[b] += 1
+                window_done = winct[b] >= config.stall_rounds
+                improved = err_best[b] < err_mark[b] * 0.97
+                stalled_win = window_done and not improved
+                if window_done:
+                    err_mark[b] = err_best[b]
+                    winct[b] = 0
+                    hard_ct[b] = 0 if improved else hard_ct[b] + 1
+                hard_stalled = (config.stall_hard_windows > 0
+                                and hard_ct[b] >= config.stall_hard_windows)
+                near_tol = err_best[b] <= config.stall_tol_factor * eff_tol
+                stalled_win = stalled_win and near_tol
+                if stalled_win:
+                    restarts[b] += 1
+                stalled[b] = (stalled_win
+                              and restarts[b] > config.stall_restarts) \
+                    or hard_stalled
+                # OSQP rho adaptation toward the lagging residual; a
+                # stalled window forces at least a decade
+                # (prox_qp.py:309-325)
+                ratio = math.sqrt((pres + 1e-20) / (dres + 1e-20))
+                adapt = ratio > 2.0 or ratio < 0.5
+                alt = 10.0 if restarts[b] % 2 == 0 else 0.1
+                big = _nanmax(ratio, 10.0) if ratio >= 1.0 \
+                    else _nanmin(ratio, 0.1)
+                forced = big if abs(math.log(ratio)) > 0.2 else alt
+                scale = forced if stalled_win else (ratio if adapt else 1.0)
+                rho_s[b] = min(max(rho_s[b] * scale, 1e-6), 1e6)
+                err[b] = e
+                if not finite:
+                    # self-healing: restart this solve from zeros
+                    heal.append(j)
+                    err[b] = _INF
+                    winct[b] = 0
+                    err_mark[b] = _INF
+                    stalled[b] = False
+                    rho_s[b] = config.rho
+                    hard_ct[b] = 0
+                if scale != 1.0 or not finite:
+                    refac.append(b)
+                rounds[b] += 1
+            if better:
+                jb = torch.as_tensor(better, device=dev)
+                z_best[at[jb]] = za[jb]
+                mu_best[at[jb]] = mua[jb]
+            if heal:
+                jh = torch.as_tensor(heal, device=dev)
+                za[jh], zetaa[jh], mua[jh] = 0.0, 0.0, 0.0
+            if full:
+                z, zeta, mu = za, zetaa, mua
+            else:
+                z, zeta, mu = z.clone(), zeta.clone(), mu.clone()
+                z[at], zeta[at], mu[at] = za, zetaa, mua
+            if refac:
+                rf = torch.as_tensor(refac, device=dev)
+                M, Mi = M.clone(), Mi.clone()
+                M[rf], Mi[rf] = _factor(
+                    As_r[rf], p_s[ids[rf]], sig,
+                    _rho_vector(eq_r[rf], [rho_s[b] for b in refac],
+                                config.rho_eq_scale, dtype))
+        use_best = torch.as_tensor([eb < e for eb, e in zip(err_best, err)],
+                                   device=dev)[:, None]
+        zr = torch.where(use_best, z_best, z)
+        mur = torch.where(use_best, mu_best, mu)
+        return (zr, mur, [_nanmin(eb, e) for eb, e in zip(err_best, err)],
+                rounds, rho_s)
 
     rho0 = config.rho
-    rho_w = rho0 if rho_init is None else min(max(float(rho_init), 1e-6),
-                                              1e6)
-    z, mu, err, rounds, rho_out = _run(z_w, mu_w, rho_w)
-    if (z0 is not None or mu0 is not None) and config.warm_retry \
-            and not err <= config.warm_retry_factor * eff_tol:
+    if rho_init is None:
+        rho_w = [rho0] * R
+    else:
+        rho_w = [min(max(v, 1e-6), 1e6) for v in
+                 torch.as_tensor(rho_init).reshape(R).tolist()]
+    ids = torch.arange(R, device=dev)
+    z, mu, err, rounds, rho_out = _run(ids, z_w, mu_w, rho_w)
+    if (z0 is not None or mu0 is not None) and config.warm_retry:
         # a stale warm start can trap ADMM; rerun cold, keep the better
-        zc, muc, errc, rc, rhoc = _run(
-            torch.zeros(nz, dtype=dtype, device=dev),
-            torch.zeros(mA, dtype=dtype, device=dev), rho0)
-        rounds += rc
-        if errc < err:
-            z, mu, rho_out = zc, muc, rhoc
-        err = _nanmin(errc, err)
+        retry = [b for b in range(R)
+                 if not err[b] <= config.warm_retry_factor * eff_tol]
+        if retry:
+            rt = torch.as_tensor(retry, device=dev)
+            zc, muc, errc, rc, rhoc = _run(
+                rt, torch.zeros((len(retry), nz), dtype=dtype, device=dev),
+                torch.zeros((len(retry), mA), dtype=dtype, device=dev),
+                [rho0] * len(retry))
+            z, mu = z.clone(), mu.clone()
+            for j, b in enumerate(retry):
+                rounds[b] += rc[j]
+                if errc[j] < err[b]:
+                    z[b], mu[b], rho_out[b] = zc[j], muc[j], rhoc[j]
+                err[b] = _nanmin(errc[j], err[b])
 
-    # ---- active-set polish + primal / dual repair (prox_qp.py:404-556)
+    # ---- active-set polish + primal / dual repair (prox_qp.py:404-556),
+    # every QP of the batch at once
     inf_t = torch.full((), _INF, dtype=dtype, device=dev)
+    col = lambda t: t[:, None]
 
     def kkt_err(zs, mus):
         zo = dc * zs
-        muo = (dr / cost_s) * mus
-        Az = A @ zo
+        muo = (dr / col(cost_s)) * mus
+        Az = _mv(A, zo)
         zero = torch.zeros((), dtype=dtype, device=dev)
         pviol = torch.clamp_min(torch.maximum(
             torch.where(torch.isfinite(l), l - Az, zero),
             torch.where(torch.isfinite(u), Az - u, zero)), 0.0)
-        pres = torch.amax(pviol / (1.0 + torch.abs(Az)))
+        pres = torch.amax(pviol / (1.0 + torch.abs(Az)), dim=-1)
         grad = p_diag * zo + g
-        dres = torch.amax(torch.abs(grad + A.T @ muo) / (1.0 + torch.abs(grad)))
+        dres = torch.amax(torch.abs(grad + _mtv(A, muo))
+                          / (1.0 + torch.abs(grad)), dim=-1)
         e = torch.maximum(pres, dres)
         return torch.where(torch.isfinite(e), e, inf_t)
 
@@ -277,11 +381,11 @@ def solve_qp(p_diag: torch.Tensor, g: torch.Tensor, A: torch.Tensor,
 
     def spd_solve(S, b):
         Sinv = _inv(S)
-        x = Sinv @ b
-        return x + Sinv @ (b - S @ x)
+        x = _mv(Sinv, b)
+        return x + _mv(Sinv, b - _mv(S, x))
 
-    act_eps = 1e-4 * torch.amax(torch.abs(mu)) + 1e-30
-    Az_s = As @ z
+    act_eps = col(1e-4 * torch.amax(torch.abs(mu), dim=-1) + 1e-30)
+    Az_s = _mv(As, z)
     near_l = fin_l & (Az_s - lc < 1e-5 * (1.0 + torch.abs(lc)))
     near_u = fin_u & (uc - Az_s < 1e-5 * (1.0 + torch.abs(uc)))
     strong = torch.abs(mu) > act_eps
@@ -292,18 +396,19 @@ def solve_qp(p_diag: torch.Tensor, g: torch.Tensor, A: torch.Tensor,
         b_act = torch.where(side_l, lc, uc)
         usable = active & (torch.abs(b_act) < 1e29)
         w = usable.to(dtype)
-        Aw = As * w[:, None]
-        S = (Aw * pt_inv[None, :]) @ Aw.T + delta * eye
-        rhs = Aw @ (pt_inv * (-g_s)) - w * b_act
+        Aw = As * w[..., None]
+        S = _matmul(Aw * pt_inv[:, None, :], Aw.transpose(-1, -2)) \
+            + delta * eye
+        rhs = _mv(Aw, pt_inv * (-g_s)) - w * b_act
         nu = spd_solve(S, rhs) * w
-        z_pol = pt_inv * (-g_s - Aw.T @ nu)
+        z_pol = pt_inv * (-g_s - _mtv(Aw, nu))
         for _ in range(2):
-            r_z = -g_s - p_s * z_pol - Aw.T @ nu
-            r_nu = w * b_act - Aw @ z_pol
-            dnu = spd_solve(S, Aw @ (pt_inv * r_z) - r_nu) * w
-            z_pol = z_pol + pt_inv * (r_z - Aw.T @ dnu)
+            r_z = -g_s - p_s * z_pol - _mtv(Aw, nu)
+            r_nu = w * b_act - _mv(Aw, z_pol)
+            dnu = spd_solve(S, _mv(Aw, pt_inv * r_z) - r_nu) * w
+            z_pol = z_pol + pt_inv * (r_z - _mtv(Aw, dnu))
             nu = nu + dnu
-        Az = As @ z_pol
+        Az = _mv(As, z_pol)
         wrong = torch.where(side_l, nu > act_eps, nu < -act_eps)
         viol_l = fin_l & (Az < lc - 1e-9 * (1.0 + torch.abs(lc)))
         viol_u = fin_u & (Az > uc + 1e-9 * (1.0 + torch.abs(uc)))
@@ -317,45 +422,46 @@ def solve_qp(p_diag: torch.Tensor, g: torch.Tensor, A: torch.Tensor,
         carry = (side_l0, seed, mu)
         for _ in range(3):
             carry, (z_pol, nu) = polish_pass(*carry)
-            finite = torch.isfinite(z_pol).all() & torch.isfinite(nu).all()
+            finite = torch.isfinite(z_pol).all(-1) & torch.isfinite(nu).all(-1)
             err_pol = torch.where(finite, kkt_err(z_pol, nu), inf_t)
             take = err_pol < best_err
-            best_z = torch.where(take, z_pol, best_z)
-            best_mu = torch.where(take, nu, best_mu)
+            best_z = torch.where(col(take), z_pol, best_z)
+            best_mu = torch.where(col(take), nu, best_mu)
             best_err = torch.minimum(err_pol, best_err)
 
-    rown2 = torch.clamp_min(torch.sum(As * As, dim=1), 1e-30)
+    rown2 = torch.clamp_min(torch.sum(As * As, dim=-1), 1e-30)
     z_rep = best_z
     for _ in range(4):
-        Az = As @ z_rep
+        Az = _mv(As, z_rep)
         viol = torch.clamp_min(Az - uc, 0.0) + torch.clamp_max(Az - lc, 0.0)
-        z_rep = z_rep - As.T @ (viol / rown2)
+        z_rep = z_rep - _mtv(As, viol / rown2)
     err_rep = kkt_err(z_rep, best_mu)
-    take_rep = torch.isfinite(z_rep).all() & (err_rep < best_err)
-    best_z = torch.where(take_rep, z_rep, best_z)
+    take_rep = torch.isfinite(z_rep).all(-1) & (err_rep < best_err)
+    best_z = torch.where(col(take_rep), z_rep, best_z)
     best_err = torch.minimum(err_rep, best_err)
 
-    Azb = As @ best_z
+    Azb = _mv(As, best_z)
     tight = (fin_l & (Azb - lc < 1e-6 * (1.0 + torch.abs(lc)))) | (
         fin_u & (uc - Azb < 1e-6 * (1.0 + torch.abs(uc))))
     wd = ((torch.abs(best_mu) > act_eps) | tight).to(dtype)
-    r_s = p_s * best_z + g_s + As.T @ best_mu
-    Awd = As * wd[:, None]
-    Sd = Awd @ Awd.T + delta * eye
-    dmu = spd_solve(Sd, -(Awd @ r_s)) * wd
+    r_s = p_s * best_z + g_s + _mtv(As, best_mu)
+    Awd = As * wd[..., None]
+    Sd = _matmul(Awd, Awd.transpose(-1, -2)) + delta * eye
+    dmu = spd_solve(Sd, -_mv(Awd, r_s)) * wd
     mu_rep = best_mu + dmu
     err_drep = kkt_err(best_z, mu_rep)
-    take_drep = torch.isfinite(mu_rep).all() & (err_drep < best_err)
-    best_mu = torch.where(take_drep, mu_rep, best_mu)
+    take_drep = torch.isfinite(mu_rep).all(-1) & (err_drep < best_err)
+    best_mu = torch.where(col(take_drep), mu_rep, best_mu)
     best_err = torch.minimum(err_drep, best_err)
 
     z, mu, err_final = best_z, best_mu, best_err
+    err_admm_ok = torch.as_tensor([e <= eff_tol for e in err], device=dev)
     stats = {
-        "qp_iters": rounds * config.check_every,
+        "qp_iters": torch.as_tensor(rounds, device=dev) * config.check_every,
         "qp_err": err_final.to(out_dtype),
         "qp_polished": err_final < err_admm,
-        "qp_converged": (err_final <= eff_tol) | bool(err <= eff_tol),
-        "qp_rho": torch.tensor(rho_out, dtype=out_dtype, device=dev),
+        "qp_converged": (err_final <= eff_tol) | err_admm_ok,
+        "qp_rho": torch.as_tensor(rho_out, dtype=out_dtype, device=dev),
     }
-    return ((dc * z).to(out_dtype), ((dr / cost_s) * mu).to(out_dtype),
-            stats)
+    return ((dc * z).to(out_dtype),
+            ((dr / col(cost_s)) * mu).to(out_dtype), stats)

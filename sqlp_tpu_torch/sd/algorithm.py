@@ -1,9 +1,11 @@
 """The SD iteration on tensors.
 
 Port of record: ``sqlp_tpu/sd/algorithm.py`` (``_scenario_rhs`` :44-58,
-``_quad_scalar_schedule`` :61-94, ``_sample_and_rhs`` :148-271,
-``_sharpen_flat`` :274-287, ``_finish`` :290-519, ``sd_step`` :522-611,
-``sd_run`` :735-772), the 8-step loop of the reference's ``sd_iteration!``:
+``_quad_scalar_schedule`` :61-94, ``_refresh_cuts`` :97-145,
+``_sample_and_rhs`` :148-271, ``_sharpen_flat`` :274-287, ``_finish``
+:290-519, ``sd_step`` :522-611, ``sd_step_replicated`` :614-705,
+``sd_run`` :735-772, ``sd_run_replicated`` :775-820), the 8-step loop of
+the reference's ``sd_iteration!``:
 
   1. add new scenarios to each epigraph           -> scenario store append
   2. solve subproblems at the candidate           -> one batched PDHG call
@@ -15,10 +17,11 @@ Port of record: ``sqlp_tpu/sd/algorithm.py`` (``_scenario_rhs`` :44-58,
   8. regularized master solve -> new candidate    -> ADMM QP
 
 The step is eager PyTorch: branches that read device data (the crossover
-gate, the candidate repair loop, the solvers' stopping tests) read it on
-the host. Left out, each refused on request: the periodic cut refresh
-(``cut_refresh_every``), importance sampling (``proposal``) and the
-replicated step.
+gate, the cut-refresh gate, the candidate repair loop, the solvers'
+stopping tests) read it on the host. The replicated step runs R SD
+replications in lockstep on a stacked state: one PDHG solve over the
+flattened panel, one batched master QP. Left out: importance sampling
+(``proposal``, ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from sqlp_tpu_torch.ops.prox_qp import solve_qp
 from sqlp_tpu_torch.sd.cuts import Cut, build_sasa_cut, evaluate_multi_epigraph
 from sqlp_tpu_torch.sd.dual_pool import push_duals
 from sqlp_tpu_torch.sd.master import assemble_master, cut_dual_slice
-from sqlp_tpu_torch.sd.state import EpigraphSpec, SDState
+from sqlp_tpu_torch.sd.state import (EpigraphSpec, SDState, stack_states,
+                                     state_at)
 
 
 def _scenario_rhs(arrays, model, deltas: torch.Tensor,
@@ -85,6 +89,40 @@ def _quad_scalar_schedule(state: SDState, config: SDConfig):
     new_normDk_1 = torch.where(early, state.normDk_1, normDk)
     new_init = state.normDk_init | (normDk > tol)
     return new_qs, new_qs, new_normDk_1, new_init
+
+
+def _refresh_cuts(arrays, model, state: SDState) -> SDState:
+    """Rebuild every live stored cut at its generating point against the
+    current dual pool and scenario store, at full weight (the weight mark
+    resets to the epigraph's total). A refreshed cut is an ordinary SASA
+    cut at the stored x, so validity is untouched; dead slots keep their
+    contents. One host read of the live mask picks the slots to build."""
+    live = state.cut_live.cpu().tolist()
+    alpha, beta = state.cut_alpha.clone(), state.cut_beta.clone()
+    for e, row in enumerate(live):
+        for k, is_live in enumerate(row):
+            if is_live:
+                cut = build_sasa_cut(arrays, model, state.duals,
+                                     state.n_duals, state.scen_deltas[e],
+                                     state.scen_weights[e],
+                                     state.total_weight[e],
+                                     state.cut_x[e, k])
+                alpha[e, k] = cut.alpha
+                beta[e, k] = cut.beta
+    return _dc.replace(
+        state, cut_alpha=alpha, cut_beta=beta,
+        cut_mark=torch.where(state.cut_live, state.total_weight[:, None],
+                             state.cut_mark))
+
+
+def _refresh_due(state: SDState, config: SDConfig) -> bool:
+    """The periodic refresh fires before a step whose pre-increment
+    iteration counter is a positive multiple of ``cut_refresh_every``
+    (one host read)."""
+    if config.cut_refresh_every <= 0:
+        return False
+    it = int(state.it.reshape(-1)[0])
+    return it > 0 and it % config.cut_refresh_every == 0
 
 
 def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
@@ -186,16 +224,14 @@ def _sharpen_flat(arrays, H, sub_Y, Pi):
                          arrays.ub2, H, sub_Y, Pi)
 
 
-def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
-            config: SDConfig, store: dict, sub_obj, sub_Y, Pi, Pi_sharp,
-            pdhg_valid, xover_dry, crossover_accepted
-            ) -> Tuple[SDState, dict]:
-    """Steps 3-8: dual-pool push, cut prune/build, incumbent selection,
-    schedule, master solve, candidate repair."""
+def _finish_pre(arrays, model, espec: EpigraphSpec, state: SDState,
+                config: SDConfig, store: dict, Pi_sharp, pdhg_valid):
+    """Steps 3-7: dual-pool push, cut prune/build, incumbent selection and
+    the prox schedule. Returns (state_now, master, extra): the state the
+    master is assembled from, the master QP's operands, and what the
+    post-master half needs."""
     E = espec.n_epi
-    K = config.max_cuts
     n1 = arrays.c.shape[0]
-    m1 = arrays.b1.shape[0]
     dt = arrays.c.dtype
     dev = arrays.c.device
     ninf = torch.full((), float("-inf"), dtype=dt, device=dev)
@@ -305,12 +341,22 @@ def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
                             quad_scalar=quad_scalar, normDk_1=normDk_1,
                             normDk_init=normDk_init)
 
-    # ---- 8. regularized master solve
-    p_diag, g, A, l, u, is_eq = assemble_master(arrays, espec, state_now,
-                                                rho)
-    z, mu, qp_stats = solve_qp(p_diag, g, A, l, u, is_eq, config.qp,
-                               z0=state.master_z, mu0=state.master_mu,
-                               rho_init=state.master_rho)
+    master = assemble_master(arrays, espec, state_now, rho)
+    extra = dict(rho=rho, duals_dropped=duals_dropped,
+                 duals_score=duals_score, overflow=store["overflow"])
+    return state_now, master, extra
+
+
+def _finish_post(arrays, espec: EpigraphSpec, state: SDState,
+                 config: SDConfig, state_now: SDState, extra: dict, z, mu,
+                 qp_stats: dict, sub_obj, sub_Y, Pi, xover_dry,
+                 crossover_accepted) -> Tuple[SDState, dict]:
+    """Step 8 after the master solve: candidate repair and the new state
+    and stats."""
+    E = espec.n_epi
+    K = config.max_cuts
+    n1 = arrays.c.shape[0]
+    m1 = arrays.b1.shape[0]
     # box clip, then relaxed hyperplane-projection sweeps close residual
     # stage-1 row violations (sqlp_tpu/sd/algorithm.py:441-485)
     x_candidate = torch.clamp(z[:n1], arrays.lb1, arrays.ub1)
@@ -348,26 +394,43 @@ def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
         master_z=z,
         master_mu=mu,
         master_rho=qp_stats["qp_rho"],
-        scen_dropped=state.scen_dropped + store["overflow"],
-        duals_dropped=duals_dropped,
-        duals_score=duals_score,
+        scen_dropped=state.scen_dropped + extra["overflow"],
+        duals_dropped=extra["duals_dropped"],
+        duals_score=extra["duals_score"],
         sub_warm_Y=sub_Y,
         sub_warm_L=Pi,
     )
     stats = {
         "it": new_state.it,
-        "cand_est": cand_est,
-        "inc_est": inc_est,
-        "is_improved": is_improved,
-        "rho": rho,
-        "n_duals": n_duals,
-        "n_cuts_live": torch.sum(cut_live),
+        "cand_est": state_now.cand_est,
+        "inc_est": state_now.inc_est,
+        "is_improved": state_now.is_improved,
+        "rho": extra["rho"],
+        "n_duals": state_now.n_duals,
+        "n_cuts_live": torch.sum(state_now.cut_live),
         "sub_obj_mean": torch.mean(sub_obj),
         "x_candidate": x_candidate,
         "crossover_accepted": crossover_accepted,
         **qp_stats,
     }
     return new_state, stats
+
+
+def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
+            config: SDConfig, store: dict, sub_obj, sub_Y, Pi, Pi_sharp,
+            pdhg_valid, xover_dry, crossover_accepted
+            ) -> Tuple[SDState, dict]:
+    """Steps 3-8: dual-pool push, cut prune/build, incumbent selection,
+    schedule, master solve, candidate repair."""
+    state_now, master, extra = _finish_pre(arrays, model, espec, state,
+                                           config, store, Pi_sharp,
+                                           pdhg_valid)
+    z, mu, qp_stats = solve_qp(*master, config.qp, z0=state.master_z,
+                               mu0=state.master_mu,
+                               rho_init=state.master_rho)
+    return _finish_post(arrays, espec, state, config, state_now, extra, z,
+                        mu, qp_stats, sub_obj, sub_Y, Pi, xover_dry,
+                        crossover_accepted)
 
 
 def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
@@ -382,10 +445,8 @@ def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
     scenarios instead of sampling them; ``weights`` ([E, B], default 1) is
     the per-scenario weight of ``add_scenario!``.
     """
-    if config.cut_refresh_every > 0:
-        raise NotImplementedError(
-            "cut_refresh_every > 0 is not ported yet (ROADMAP: cut "
-            "refresh); run with the default 0")
+    if _refresh_due(state, config):
+        state = _refresh_cuts(arrays, model, state)
     store, H, L0, Q = _sample_and_rhs(arrays, model, espec, state, config,
                                       generator, deltas, weights)
 
@@ -419,15 +480,113 @@ def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
     return new_state, stats
 
 
-def scalar_stat_keys(stats: Dict) -> Tuple[str, ...]:
-    """Sorted names of the scalar entries of an ``sd_step`` stats dict:
-    the column order of ``sd_run``'s packed panel."""
+def sd_step_replicated(arrays, model, espec: EpigraphSpec,
+                       prep_sub: PreparedLP, states: SDState,
+                       config: SDConfig, generators: List[torch.Generator],
+                       deltas: Optional[torch.Tensor] = None
+                       ) -> Tuple[SDState, dict]:
+    """One SD iteration on R stacked replications (every field of
+    ``states`` carries a leading R axis; ``stack_states`` builds one).
+
+    Replication r samples from ``generators[r]`` unless ``deltas``
+    ([R, E*B, n_rv]) supplies every replication's scenarios. The
+    per-replication sample / RHS builds feed ONE ``solve_batch`` over the
+    flattened [R*2EB, m2] panel (one restart loop, one compaction ladder);
+    the crossover masks its per-replication dry gate instead of branching;
+    the R master QPs are one batched ``solve_qp`` without the cold warm
+    retry, as under the reference's vmap (``algorithm.py:683-687``). Stats
+    are [R]-shaped, with the panel-global PDHG scalars broadcast.
+    """
+    R = states.cut_alpha.shape[0]
+    E = espec.n_epi
+    B = config.scenarios_per_iter
+    if len(generators) != R:
+        raise ValueError(f"{len(generators)} generators for {R} "
+                         f"replications")
+    if deltas is not None and tuple(deltas.shape[:2]) != (R, E * B):
+        raise ValueError(f"replicated scenarios must be [R={R}, E*B="
+                         f"{E * B}, n_rv], got {tuple(deltas.shape)}")
+    reps = [state_at(states, r) for r in range(R)]
+    if _refresh_due(states, config):
+        # replications run in lockstep: one gate for all
+        reps = [_refresh_cuts(arrays, model, st) for st in reps]
+    parts = [_sample_and_rhs(
+        arrays, model, espec, st, config, generators[r],
+        None if deltas is None else deltas[r].reshape(E, B, -1), None)
+        for r, st in enumerate(reps)]
+    P = parts[0][1].shape[0]                        # 2*E*B rows per rep
+    H = torch.cat([pt[1] for pt in parts])
+    Q = None if parts[0][3] is None else torch.cat([pt[3] for pt in parts])
+    sub_obj, sub_Y, Pi, sub_stats = solve_batch(
+        prep_sub, H, config.pdhg,
+        Y0=torch.cat([st.sub_warm_Y for st in reps]),
+        L0=torch.cat([pt[2] for pt in parts]), Q=Q)
+
+    dry = states.xover_dry
+    if config.dual_crossover and not model.has_cost:
+        live = torch.ones_like(dry, dtype=torch.bool) \
+            if config.crossover_dry_limit <= 0 \
+            else dry < config.crossover_dry_limit
+        # the batched active-set solves are skipped only when every
+        # replication's gate is dry (one host read)
+        if bool(torch.any(live)):
+            live_el = torch.repeat_interleave(live, P)
+            Pi_sharp, accept = _sharpen_flat(arrays, H, sub_Y, Pi)
+            Pi_sharp = torch.where(live_el[:, None], Pi_sharp, Pi)
+            accept = accept & live_el
+        else:
+            Pi_sharp = Pi
+            accept = torch.zeros(Pi.shape[0], dtype=torch.bool,
+                                 device=Pi.device)
+        n_acc = torch.sum(accept.reshape(R, P), dim=1).to(torch.int32)
+        xover_dry = torch.where(n_acc > 0, torch.zeros_like(dry), dry + 1)
+    else:
+        Pi_sharp = Pi
+        xover_dry = dry
+        n_acc = torch.zeros(R, dtype=torch.int32, device=Pi.device)
+
+    rows = [slice(r * P, (r + 1) * P) for r in range(R)]
+    valid = sub_stats["pdhg_valid"]
+    pre = [_finish_pre(arrays, model, espec, reps[r], config,
+                       parts[r][0], Pi_sharp[rows[r]], valid[rows[r]])
+           for r in range(R)]
+    master = [torch.stack([pr[1][i] for pr in pre]) for i in range(6)]
+    qp_cfg = _dc.replace(config.qp, warm_retry=False)
+    z, mu, qp_stats = solve_qp(*master, qp_cfg, z0=states.master_z,
+                               mu0=states.master_mu,
+                               rho_init=states.master_rho)
+    outs = [_finish_post(arrays, espec, reps[r], config, pre[r][0],
+                         pre[r][2], z[r], mu[r],
+                         {k: v[r] for k, v in qp_stats.items()},
+                         sub_obj[rows[r]], sub_Y[rows[r]], Pi[rows[r]],
+                         xover_dry[r], n_acc[r])
+            for r in range(R)]
+    new_states = stack_states([o[0] for o in outs])
+    stats = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
+    for k, v in sub_stats.items():
+        if k in ("pdhg_done", "pdhg_valid", "pdhg_err"):
+            stats[k] = v.reshape(R, P)
+        else:
+            t = torch.as_tensor(v, device=Pi.device)
+            stats[k] = t.expand((R,) + t.shape)
+    return new_states, stats
+
+
+def scalar_stat_keys(stats: Dict, ndim: int = 0) -> Tuple[str, ...]:
+    """Sorted names of the scalar entries of an ``sd_step`` stats dict
+    (``ndim=1``: the [R]-shaped entries of ``sd_step_replicated``'s): the
+    column order of the packed panels."""
     def scalar(v) -> bool:
         if torch.is_tensor(v):
-            return v.dim() == 0
-        return isinstance(v, (int, float, bool))
+            return v.dim() == ndim
+        return ndim == 0 and isinstance(v, (int, float, bool))
 
     return tuple(sorted(k for k, v in stats.items() if scalar(v)))
+
+
+def _pack(rows: List[torch.Tensor]) -> np.ndarray:
+    """Per-step stat rows -> one float32 host array (one transfer)."""
+    return torch.stack(rows).to(torch.float32).cpu().numpy()
 
 
 def sd_run(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
@@ -449,5 +608,26 @@ def sd_run(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
                 torch.float64) for k in keys]))
     if not rows:
         return state, np.zeros((0, 0), np.float32), keys
-    packed = torch.stack(rows).to(torch.float32).cpu().numpy()
-    return state, packed, keys
+    return state, _pack(rows), keys
+
+
+def sd_run_replicated(arrays, model, espec: EpigraphSpec,
+                      prep_sub: PreparedLP, states: SDState,
+                      config: SDConfig, n_steps: int,
+                      generators: List[torch.Generator]
+                      ) -> Tuple[SDState, np.ndarray, Tuple[str, ...]]:
+    """Advance R stacked replications n_steps iterations in lockstep.
+    Returns (states, packed, keys): packed is one [n_steps, n_keys, R]
+    float32 host array of the per-iteration, per-replication scalar
+    stats, read back once at the end."""
+    rows: List[torch.Tensor] = []
+    keys: Tuple[str, ...] = ()
+    for _ in range(n_steps):
+        states, stats = sd_step_replicated(arrays, model, espec, prep_sub,
+                                           states, config, generators)
+        if not keys:
+            keys = scalar_stat_keys(stats, ndim=1)
+        rows.append(torch.stack([stats[k].to(torch.float64) for k in keys]))
+    if not rows:
+        return states, np.zeros((0, 0, 0), np.float32), keys
+    return states, _pack(rows), keys

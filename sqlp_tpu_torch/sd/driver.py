@@ -3,13 +3,16 @@
 Port of record: ``sqlp_tpu/sd/driver.py:SDSolver`` (``__init__`` :45-187,
 ``step`` :198, ``step_scenarios`` :206-234, ``run`` :250-304,
 ``_warmstart_pool`` :483, ``_prep_sub64`` :493-508, ``_recourse_objs``
-:510-678, ``evaluate`` :689-715, ``evaluate_ci`` :717-819).
+:510-678, ``evaluate`` :689-715, ``evaluate_ci`` :717-819) and
+``SDReplications`` (:843-940, 1165-1186).
 
 Every tensor lives on the instance's device; the solver owns an explicit
 ``torch.Generator`` on that device, seeded from ``seed``, for the scenario
-stream and the reservoir. The MC evaluators seed their own generators.
-Not ported (refused by the CLI, absent here): meshes, replications,
-importance-sampling proposals, checkpoint I/O, certified bounds.
+stream and the reservoir (``SDReplications``: one per replication, seeded
+``seed + r``). The MC evaluators seed their own generators. Not ported
+(refused by the CLI, absent here): meshes, importance-sampling proposals,
+checkpoint I/O, certified bounds (``certified_lower_bound``,
+``solve_to_certified_gap``: ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ from sqlp_tpu_torch.models.routines import (project_first_stage,
 from sqlp_tpu_torch.models.scenario import (cost_panel, sample_deltas,
                                             values_to_deltas)
 from sqlp_tpu_torch.ops.pdhg import prepare_lp, solve_batch
-from sqlp_tpu_torch.sd.algorithm import _scenario_rhs, sd_run, sd_step
+from sqlp_tpu_torch.sd.algorithm import (_scenario_rhs, sd_run,
+                                         sd_run_replicated, sd_step)
 from sqlp_tpu_torch.sd.state import (EpigraphSpec, SDState,
                                      default_epigraph_spec, init_state,
-                                     state_to_numpy)
+                                     stack_states, state_at, state_to_numpy)
 from sqlp_tpu_torch.utils.torchsetup import configure_torch
 
 
@@ -53,10 +57,6 @@ class SDSolver:
                  espec: Optional[EpigraphSpec] = None, x0=None,
                  seed: int = 0, n_epi: int = 1):
         configure_torch()
-        if config.cut_refresh_every > 0:
-            raise NotImplementedError(
-                "cut_refresh_every > 0 is not ported yet (ROADMAP: cut "
-                "refresh)")
         self.inst = inst
         self.device = inst.device
         if inst.scenario_model.has_cost:
@@ -322,9 +322,18 @@ class SDSolver:
             self.x_incumbent if x is None else x), dtype=self.config.jdtype,
             device=self.device)
 
+    def _mc_values(self, x, gen: torch.Generator, b: int,
+                   sampling: str) -> np.ndarray:
+        """Certified recourse values of one b-row MC panel at x."""
+        deltas = sample_deltas(gen, self.inst.scenario_model, b,
+                               method=sampling)
+        H = _scenario_rhs(self.arrays, self.inst.scenario_model, deltas, x)
+        return self._recourse_objs(H, Q=self._cost_panel(deltas))
+
     def evaluate(self, x=None, n_samples: int = 10_000, seed: int = 123,
-                 batch: int = 4096) -> float:
-        """Monte-Carlo upper-bound estimate at x (iid draws)."""
+                 batch: int = 4096, sampling: str = "iid") -> float:
+        """Monte-Carlo upper-bound estimate at x; ``sampling`` in {"iid",
+        "antithetic", "stratified"} picks the scheme of each batch."""
         x = self._eval_point(x)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -332,11 +341,7 @@ class SDSolver:
         done = 0
         while done < n_samples:
             b = min(batch, n_samples - done)
-            deltas = sample_deltas(gen, self.inst.scenario_model, b)
-            H = _scenario_rhs(self.arrays, self.inst.scenario_model,
-                              deltas, x)
-            total += float(self._recourse_objs(
-                H, Q=self._cost_panel(deltas)).sum())
+            total += float(self._mc_values(x, gen, b, sampling).sum())
             done += b
         first = float(self.arrays.c @ x)
         return (first + total / n_samples) * self.obj_scale
@@ -344,14 +349,21 @@ class SDSolver:
     def evaluate_ci(self, x=None, confidence: float = 0.95,
                     target_half_width: float = 0.0,
                     min_samples: int = 2048, max_samples: int = 262_144,
-                    seed: int = 123, batch: int = 4096):
-        """Monte-Carlo estimate with a confidence interval over iid draws
-        (the per-element estimator of the port of record). With
+                    seed: int = 123, batch: int = 4096,
+                    sampling: str = "iid"):
+        """Monte-Carlo estimate with a confidence interval. With
         ``target_half_width > 0`` sampling continues in batches until the
-        half-width falls below it or ``max_samples`` is reached. The width
-        is floored at ``valid_tol`` relative, the per-element solver
-        accuracy. Returns (mean, half_width, n_samples)."""
+        half-width falls below it or ``max_samples`` is reached.
+
+        Under ``sampling`` "antithetic" or "stratified" with at least 8
+        full-size batches, the half-width is the Student-t interval over
+        the batch means (each batch is an independent variance-reduced
+        panel, so it sees the variance reduction); otherwise it is the
+        per-element estimator, which is conservative under either scheme.
+        The width is floored at ``valid_tol`` relative, the per-element
+        solver accuracy. Returns (mean, half_width, n_samples)."""
         from scipy.special import erfinv
+        from scipy.stats import t as student_t
 
         x = self._eval_point(x)
         z = math.sqrt(2.0) * float(erfinv(confidence))
@@ -360,9 +372,15 @@ class SDSolver:
         n = 0
         mean = 0.0
         m2 = 0.0
+        batch_means: List[float] = []      # full-size batches only
 
         def half_width() -> float:
-            hw = z * math.sqrt(m2 / max(n - 1, 1) / max(n, 1))
+            if sampling != "iid" and len(batch_means) >= 8:
+                nb = len(batch_means)
+                tq = float(student_t.ppf(0.5 * (1.0 + confidence), nb - 1))
+                hw = tq * float(np.std(batch_means, ddof=1)) / math.sqrt(nb)
+            else:
+                hw = z * math.sqrt(m2 / max(n - 1, 1) / max(n, 1))
             return max(hw, self.config.pdhg.valid_tol * (1.0 + abs(mean)))
 
         while True:
@@ -370,10 +388,7 @@ class SDSolver:
             b = min(batch, stop_at - n)
             if b <= 0:
                 break
-            deltas = sample_deltas(gen, self.inst.scenario_model, b)
-            H = _scenario_rhs(self.arrays, self.inst.scenario_model,
-                              deltas, x)
-            vals = self._recourse_objs(H, Q=self._cost_panel(deltas))
+            vals = self._mc_values(x, gen, b, sampling)
             # Chan et al. parallel-variance merge of the batch's moments
             bn = len(vals)
             bm = float(vals.mean())
@@ -383,6 +398,8 @@ class SDSolver:
             mean += delta * bn / tot
             m2 += bm2 + delta * delta * n * bn / tot
             n = tot
+            if bn == batch:
+                batch_means.append(bm)
             if target_half_width and n >= min_samples \
                     and half_width() <= target_half_width:
                 break
@@ -390,3 +407,112 @@ class SDSolver:
         first = float(self.arrays.c @ x)
         s_ = self.obj_scale
         return (first + mean) * s_, hw * s_, n
+
+
+class SDReplications(SDSolver):
+    """R independent SD replications advanced together
+    (``sd_run_replicated``): one PDHG solve over the flattened panel and
+    one batched master QP per step.
+
+    ``self.state`` carries a leading replication axis R; instance
+    compilation, scaling, projection and evaluation are inherited.
+    Replication r draws from a generator seeded ``seed + r``, so
+    replication 0 uses a sequential ``SDSolver(seed=seed)``'s seed, but
+    lockstep trajectories are not bitwise those of sequential runs: the
+    shared panel's per-element restarts and compaction see the merged
+    panel, and the cold warm retry of the master is off.
+    """
+
+    def __init__(self, inst: Instance, config: SDConfig = SDConfig(),
+                 n_replications: int = 2,
+                 espec: Optional[EpigraphSpec] = None, x0=None,
+                 seed: int = 0, n_epi: int = 1):
+        if n_replications < 1:
+            raise ValueError(f"n_replications must be >= 1, got "
+                             f"{n_replications}")
+        super().__init__(inst, config, espec=espec, x0=x0, seed=seed,
+                         n_epi=n_epi)
+        self.n_replications = n_replications
+        self.state = stack_states([self.state] * n_replications)
+        self.generators = []
+        for r in range(n_replications):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed + r)
+            self.generators.append(g)
+
+    def run(self, n_iters: int, log_every: int = 0,
+            callback: Optional[Callable[[int, Dict], None]] = None,
+            chunk: int = 64) -> Dict:
+        """Run n_iters iterations on every replication in chunks with one
+        stats readback per chunk; returns the last iteration's stats
+        ([R]-shaped entries)."""
+        last: Dict = {}
+        done = 0
+        while done < n_iters:
+            n = min(chunk, n_iters - done)
+            self.state, packed, keys = sd_run_replicated(
+                self.arrays, self.scenario_model, self.espec, self.prep_sub,
+                self.state, self.config, n, self.generators)
+            acc = self._unscale({k: packed[:, j] for j, k in
+                                 enumerate(keys)})
+            done += n
+            if not np.all(np.isfinite(acc["cand_est"])):
+                dump = os.path.abspath("error_state.npz")
+                np.savez(dump, **state_to_numpy(self.state))
+                raise FloatingPointError(
+                    f"non-finite candidate estimate in a replication; "
+                    f"stacked state dumped to {dump}")
+            if log_every:
+                for j in range(n):
+                    if int(acc["it"][j, 0]) % log_every == 0:
+                        self.history.append({k: acc[k][j] for k in acc})
+            last = {k: acc[k][-1] for k in acc}
+            if callback:
+                callback(done, last)
+        return last
+
+    def step(self) -> Dict:
+        """One SD iteration on every replication ([R]-shaped stats)."""
+        self.state, packed, keys = sd_run_replicated(
+            self.arrays, self.scenario_model, self.espec, self.prep_sub,
+            self.state, self.config, 1, self.generators)
+        return self._unscale({k: packed[0, j] for j, k in enumerate(keys)})
+
+    def _warmstart_pool(self) -> Optional[np.ndarray]:
+        """Union of every replication's live dual vertices: the MC retry
+        evaluates arbitrary x (the compromise decision), so any
+        replication's vertex is an equally valid warm-start candidate."""
+        n_duals = _host(self.state.n_duals)                # [R]
+        if not n_duals.max(initial=0) > 0:
+            return None
+        duals = np.asarray(_host(self.state.duals), np.float64)
+        return np.concatenate([duals[r, :int(n_duals[r])]
+                               for r in range(len(n_duals))])
+
+    @property
+    def states(self) -> List[SDState]:
+        """Per-replication states (for ``compromise_decision``)."""
+        return [state_at(self.state, r) for r in range(self.n_replications)]
+
+    @property
+    def especs(self) -> List[EpigraphSpec]:
+        return [self.espec] * self.n_replications
+
+    @property
+    def x_incumbents(self) -> np.ndarray:
+        return _host(self.state.x_incumbent)               # [R, n1]
+
+    @property
+    def lower_estimates(self) -> np.ndarray:
+        return _host(self.state.cand_est) * self.obj_scale
+
+    # singular accessors are ambiguous on a batch: point at the plurals
+    @property
+    def x_incumbent(self) -> np.ndarray:
+        raise AttributeError("SDReplications has R incumbents: use "
+                             ".x_incumbents [R, n1]")
+
+    @property
+    def lower_estimate(self) -> float:
+        raise AttributeError("SDReplications has R estimates: use "
+                             ".lower_estimates [R]")

@@ -8,12 +8,18 @@ the reference package, so a state reads and writes the ``.npz`` schema of
 ``sqlp_tpu/utils/checkpoint.py:25-42`` (:func:`state_to_numpy`,
 :func:`state_from_numpy`). The JAX PRNG ``key`` field has no counterpart:
 the solver's ``torch.Generator`` stands in its place.
+
+Replications stack R states on a leading axis of every field
+(:func:`stack_states`, the counterpart of ``jax.tree.map(jnp.stack)`` at
+``sqlp_tpu/sd/driver.py:869-872``); :func:`state_at` takes replication r
+back out. The numpy converters take a stacked state as they are, with a
+stacked template.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -186,3 +192,16 @@ def state_from_numpy(fields, template: SDState) -> SDState:
                              f"must match)")
         out[f.name] = torch.as_tensor(a, device=t.device).to(t.dtype)
     return SDState(**out)
+
+
+def stack_states(states: Sequence[SDState]) -> SDState:
+    """R states -> one state with a leading R axis on every field."""
+    return SDState(**{f.name: torch.stack([getattr(s, f.name)
+                                           for s in states])
+                      for f in dataclasses.fields(SDState)})
+
+
+def state_at(states: SDState, r: int) -> SDState:
+    """Replication r of a stacked state (views, no copies)."""
+    return SDState(**{f.name: getattr(states, f.name)[r]
+                      for f in dataclasses.fields(SDState)})

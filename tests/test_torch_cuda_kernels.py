@@ -71,6 +71,55 @@ def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, dtype,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-10)])
+@pytest.mark.parametrize("name,B,per_el_q", [("lands", 8, False),
+                                             ("ssn", 3, True),
+                                             ("ssn", 700, False)])
+def test_pdhg_average_round_matches_plain(cuda, name, B, per_el_q, dtype,
+                                          tol):
+    """The restart-to-average kernel vs its plain version over one 80-step
+    round (last iterate and running averages), at the tolerances of the
+    Halpern round; it counts its own launches, not the Halpern kernel's."""
+    args = _round_args(name, B, dtype, cuda, per_el_q)[:10]
+    before = pdhg_kernel.average_launches
+    halpern = pdhg_kernel.launches
+    out = pdhg_kernel.pdhg_average_round(*args, 80)
+    torch.cuda.synchronize()
+    assert pdhg_kernel.average_launches == before + 1
+    assert pdhg_kernel.launches == halpern
+    ref = pdhg_kernel.pdhg_average_round_ref(*args, 80)
+    for o, r in zip(out, ref):
+        scale = 1.0 + float(r.abs().max())
+        assert float((o - r).abs().max()) <= tol * scale
+
+
+def test_solve_batch_average_scheme_runs_the_kernel(cuda):
+    """solve_batch(scheme="average") on the card launches the average
+    kernel and never the Halpern one, and its float64 objectives agree
+    with the CPU run's plain version to 1e-6 relative (both solve to tol
+    1e-9; only the reduction order differs)."""
+    from sqlp_tpu_torch.config import PDHGConfig
+    from sqlp_tpu_torch.ops.pdhg import solve_batch
+    inst = load_instance("transship", dtype=torch.float64)
+    a = inst.arrays
+    g = torch.Generator().manual_seed(2)
+    H = a.r[None, :] + 0.1 * torch.rand((16, a.r.shape[0]), generator=g,
+                                        dtype=torch.float64)
+    cfg = PDHGConfig(scheme="average", tol=1e-9, max_iters=20_000)
+    objs = []
+    for dev in (torch.device("cpu"), cuda):
+        lp = prepare_lp(*(t.to(dev) for t in (a.W, a.senses2, a.q, a.lb2,
+                                             a.ub2)))
+        before = (pdhg_kernel.launches, pdhg_kernel.average_launches)
+        obj, _, _, _ = solve_batch(lp, H.to(dev), cfg)
+        after = (pdhg_kernel.launches, pdhg_kernel.average_launches)
+        assert after[0] == before[0]
+        assert (after[1] > before[1]) == (dev.type == "cuda")
+        objs.append(obj.cpu())
+    torch.testing.assert_close(objs[1], objs[0], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
 def test_admm_round_matches_plain(cuda, dtype, tol):
     """Kernel vs plain version over one 25-step interval on a random
     well-conditioned QP, unbatched and with a batch of three."""
@@ -112,3 +161,10 @@ def test_wrappers_refuse_bad_operands(cuda):
     bad[8] = args[8].t().contiguous().t()
     with pytest.raises(ValueError):
         pdhg_kernel.pdhg_halpern_round(*bad, 4)
+    bad = list(args[:10])
+    bad[5] = args[5].double()
+    with pytest.raises(TypeError):
+        pdhg_kernel.pdhg_average_round(*bad, 4)
+    bad[5] = args[5].cpu()
+    with pytest.raises(ValueError):
+        pdhg_kernel.pdhg_average_round(*bad, 4)

@@ -67,7 +67,8 @@ def test_iid_sampling_matches_marginals():
     """iid draws from an explicit generator follow the sto marginals: lands'
     demand takes 3 / 5 / 7 with probabilities 0.3 / 0.4 / 0.3 (tolerance
     0.01: four standard errors at 40000 draws); the same seed repeats the
-    panel exactly; unported schemes raise."""
+    panel exactly; an antithetic panel pairs its halves as (u, 1 - u), so
+    the demand's 3 / 7 outcomes mirror and 5 stays 5."""
     inst = load_instance("lands", dtype=torch.float64)
     m = inst.scenario_model
     g = torch.Generator().manual_seed(3)
@@ -77,5 +78,5 @@ def test_iid_sampling_matches_marginals():
     a = sample_deltas(torch.Generator().manual_seed(5), m, 16)
     b = sample_deltas(torch.Generator().manual_seed(5), m, 16)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        sample_values(g, m, 16, method="antithetic")
+    anti = sample_values(g, m, 16, method="antithetic")[:, 0].numpy()
+    np.testing.assert_array_equal(anti[:8] + anti[8:], np.full(8, 10.0))

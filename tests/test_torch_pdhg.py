@@ -1,8 +1,10 @@
 """The port's batched PDHG solver (sqlp_tpu_torch/ops/pdhg.py) and its
-Halpern round (ops/cuda/pdhg_kernel.py, plain version on the CPU) held
-against the JAX package's solve_batch (XLA loop, float64) on the same
-numpy right-hand-side panels, plus the HiGHS oracle."""
+Halpern and restart-to-average rounds (ops/cuda/pdhg_kernel.py, plain
+versions on the CPU) held against the JAX package's solve_batch (XLA loop,
+float64) on the same numpy right-hand-side panels, plus the HiGHS
+oracle."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +17,9 @@ from sqlp_tpu.ops.pdhg import solve_batch as jax_solve_batch
 from sqlp_tpu_torch.config import PDHGConfig
 from sqlp_tpu_torch.models.instance import load_instance
 from sqlp_tpu_torch.models.routines import solve_lp_host
-from sqlp_tpu_torch.ops.cuda.pdhg_kernel import (pdhg_halpern_round,
+from sqlp_tpu_torch.ops.cuda.pdhg_kernel import (pdhg_average_round,
+                                                 pdhg_average_round_ref,
+                                                 pdhg_halpern_round,
                                                  pdhg_halpern_round_ref)
 from sqlp_tpu_torch.ops.pdhg import (PREPARED_FIELDS, prepare_lp,
                                      prepared_lp_from_numpy, solve_batch)
@@ -115,8 +119,8 @@ def test_one_halpern_round_matches_jax(name, B, per_el_q):
 
 
 def test_kernel_wrapper_cpu_is_plain_version():
-    """On CPU tensors the wrapper is exactly the plain version (bitwise),
-    and a non-CPU, non-CUDA device is refused."""
+    """On CPU tensors the wrappers are exactly the plain versions
+    (bitwise), and a non-CPU, non-CUDA device is refused."""
     _, lp, _, H, _ = _both("lands", 4, 1)
     B = H.shape[0]
     ht = torch.as_tensor(H) * (lp.flip * lp.row_scale)[None, :]
@@ -132,6 +136,83 @@ def test_kernel_wrapper_cpu_is_plain_version():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         pdhg_halpern_round(lp.K.to("meta"), *args[1:])
+    avg = args[:10] + (7,)
+    for a, b in zip(pdhg_average_round(*avg), pdhg_average_round_ref(*avg)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        pdhg_average_round(lp.K.to("meta"), *avg[1:])
+
+
+def _jax_average_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, n):
+    """The JAX package's restart-to-average inner loop
+    (sqlp_tpu/ops/pdhg.py:330-340), written out in jnp."""
+    qrow = q[None, :] if q.ndim == 1 else q
+    tau, sig = tau[:, None], sig[:, None]
+
+    def body(_, carry):
+        Y, L, Ys, Ls, cnt = carry
+        G = qrow - L @ K
+        Y1 = jnp.clip(Y - tau * G, lb, ub)
+        S = ht - (2.0 * Y1 - Y) @ K.T
+        Lr = L + sig * S
+        L1 = jnp.where(is_eq[None, :], Lr, jnp.maximum(Lr, 0.0))
+        return Y1, L1, Ys + Y1, Ls + L1, cnt + 1.0
+
+    init = (Y, L, jnp.zeros_like(Y), jnp.zeros_like(L),
+            jnp.zeros((), Y.dtype))
+    Y, L, Ys, Ls, cnt = jax.lax.fori_loop(0, n, body, init)
+    return Y, L, Ys / cnt, Ls / cnt
+
+
+@pytest.mark.parametrize("per_el_q", [False, True], ids=["shared_q", "per_el_q"])
+def test_average_round_ref_matches_jax_loop(per_el_q):
+    """One 80-step round of the plain version against the JAX loop on ssn
+    operands, from a mid-solve point. Tolerance 1e-12 relative: the same
+    float64 operations, only the BLAS reduction order differs."""
+    _, lp, _, H, Q = _both("ssn", 6, seed=4, per_el_q=per_el_q)
+    B = H.shape[0]
+    ht = torch.as_tensor(H) * (lp.flip * lp.row_scale)[None, :]
+    lb = torch.clamp(lp.lb, min=-1e30)
+    ub = torch.clamp(lp.ub, max=1e30)
+    q = lp.q if Q is None else torch.as_tensor(Q) * lp.col_scale[None, :]
+    rng = np.random.default_rng(2)
+    tau = torch.as_tensor(float(lp.step) * rng.uniform(0.5, 2.0, B))
+    sig = torch.as_tensor(float(lp.step) * rng.uniform(0.5, 2.0, B))
+    Y = torch.clamp(torch.zeros((B, lp.n), dtype=torch.float64), lb, ub)
+    L = torch.zeros((B, lp.m), dtype=torch.float64)
+    args = [lp.K, q, lb, ub, lp.is_eq, ht, tau, sig]
+    Y, L, _, _ = pdhg_average_round_ref(*args, Y, L, 40)
+    out = pdhg_average_round(*args, Y, L, 80)
+    ref = _jax_average_round(*(jnp.asarray(a.numpy()) for a in args),
+                             jnp.asarray(Y.numpy()), jnp.asarray(L.numpy()),
+                             80)
+    for o, r in zip(out, ref):
+        _close(o.numpy(), r, 1e-12)
+
+
+@pytest.mark.parametrize("budget", ["one_round", "to_tol"])
+@pytest.mark.parametrize("name,B", [("lands", 8), ("transship", 8),
+                                    ("ssn", 4)])
+def test_average_scheme_matches_jax(name, B, budget):
+    """solve_batch(scheme="average") against the JAX one: exactly one
+    round (max_iters 80), and to tol 1e-9 (capped at 4000 iterations).
+    Objectives, Y and Pi agree to 1e-10 relative and the round counts
+    are equal: the same restarts in float64, only the BLAS reduction
+    order differs."""
+    _, lp, jlp, H, _ = _both(name, B, seed=6)
+    cfg = dict(scheme="average", tol=1e-9,
+               max_iters=80 if budget == "one_round" else 4000)
+    jobj, jY, jPi, jst = jax_solve_batch(jlp, jnp.asarray(H),
+                                         JPDHGConfig(**cfg))
+    obj, Y, Pi, st = solve_batch(lp, torch.as_tensor(H), PDHGConfig(**cfg))
+    assert st["pdhg_rounds"] == int(jst["pdhg_rounds"])
+    if budget == "one_round":
+        assert st["pdhg_rounds"] == 1
+    _close(obj.numpy(), jobj, 1e-10)
+    _close(Y.numpy(), jY, 1e-10)
+    _close(Pi.numpy(), jPi, 1e-10)
+    np.testing.assert_array_equal(st["pdhg_done"].numpy(),
+                                  np.asarray(jst["pdhg_done"]))
 
 
 @pytest.mark.parametrize("name,B", [("lands", 8), ("transship", 8)])

@@ -179,15 +179,48 @@ def test_cli_solve_lands():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--x0", "crash"], ["--replications", "4"], ["--certify"],
-    ["--mesh", "8"], ["--proposal-sto", "other.sto"], ["--cut-refresh", "64"],
-    ["--sampling", "stratified"]])
+    ["--x0", "crash"], ["--replications", "4", "--certify"], ["--certify"],
+    ["--mesh", "8"], ["--proposal-sto", "other.sto"],
+    ["--target-gap", "0.01"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     """Flags whose features are not ported exit 2 before any work, with a
     message naming the ROADMAP item."""
     from sqlp_tpu_torch.cli import main
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "8"],
+                                  ["--proposal-sto", "other.sto"]])
+def test_cli_refuses_replications_with_mesh_or_proposal(flag, capsys):
+    """--replications > 1 with --mesh or --proposal-sto exits 2 with the
+    reference CLI's own message (sqlp_tpu/cli.py:75-82)."""
+    from sqlp_tpu_torch.cli import main
+    assert main(["solve", "lands", "--device", "cpu", "--replications", "2",
+                 *flag]) == 2
+    assert "not supported with --replications > 1" in \
+        capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,key", [
+    (["--replications", "3", "--iters", "40"], "mc_ub_compromise"),
+    (["--cut-refresh", "64", "--iters", "70"], "mc_ub"),
+    (["--sampling", "stratified", "--batch", "2", "--iters", "40"],
+     "mc_ub")], ids=["replications", "cut_refresh", "stratified"])
+def test_cli_solve_lands_options(flags, key):
+    """The CLI's replicated solve, periodic cut refresh (fired once, at
+    iteration 64) and stratified sampling on lands on the CPU: exit 0 with
+    a finite upper bound within the 12-unit band of test_cli_solve_lands
+    (the replicated run's is the compromise decision's)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sqlp_tpu_torch", "solve", "lands",
+         "--device", "cpu", "--eval-samples", "256", *flags],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    m = re.search(rf"\b{key}=(\S+)", proc.stdout)
+    assert m, proc.stdout
+    assert abs(float(m.group(1)) - LANDS_OPT) < 12.0, proc.stdout
 
 
 def test_port_never_imports_jax():
