@@ -5,16 +5,26 @@
         --phases device,b1,b2,b3,main,replicated,cli,cli_rep
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
-against its plain PyTorch version at the shapes the paths give it, and
+against its plain PyTorch version at the shapes the paths give it (both
+variants of the Halpern round, row-block and cluster, wherever the cluster
+takes the shape), and
 drives two paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
-settings, then the Monte-Carlo upper bound over 4096 scenarios) and the
+settings, then the Monte-Carlo upper bound over 4096 scenarios; run twice,
+`main` and `main2`, whose seeded bounds must agree bitwise) and the
 replicated path (8 lockstep SD replications on ssn under the
 restart-to-average PDHG scheme, the compromise decision, its stratified
 Monte-Carlo bound). It then runs the lands CLI, single and replicated,
 against the known optimum 381.8533. Any failed phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
+
+The phase `profile` (not run by default) breaks the main and the
+replicated path's time down by phase of the SD step and by kernel. The phase `sweep` (not run by
+default) times every variant the kernels
+admit at the shapes their plan functions decide between: the thresholds
+of ops/cuda/pdhg_kernel.py:_plan and ops/cuda/admm_kernel.py:_plan come
+from it.
 """
 
 from __future__ import annotations
@@ -34,6 +44,43 @@ LANDS_OPT = 381.8533333
 # of a 1e-7 ulp drift over the round's 80 (PDHG) / 25 (ADMM) steps;
 # float64 drifts at 1e-16 per step
 TOL = {"float32": 1e-4, "float64": 1e-10}
+# the least time the card could take: NVIDIA's H100 SXM data-sheet peaks
+# for each type, 67 TFLOP/s in float32 (CUDA cores) and 67 TFLOP/s in
+# float64 (tensor cores, full IEEE FP64), and its HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(flops: float, nbytes: float, dname: str):
+    """(ms, 'operations' or 'bytes'): the larger of the two lower bounds."""
+    ops_ms = flops / PEAK_FLOPS[dname] * 1e3
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= mem_ms else (mem_ms, "bytes")
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pdhg_bound(args, n_inner: int, dname: str):
+    """Bound of one PDHG round: its two products (2 m n FMAs per row and
+    step), each operand read once and the four [B, *] outputs written
+    once."""
+    m, n = args[0].shape
+    B = args[5].shape[0]
+    flops = 4.0 * m * n * B * n_inner
+    out = 2 * B * (m + n) * 2 * args[0].element_size()
+    return bound_ms(flops, _nbytes(args) + out, dname)
+
+
+def admm_bound(ops, n_inner: int, dname: str):
+    """Bound of one ADMM interval: As^T w and As x (2 mA nz FMAs) and the
+    three nz x nz products per step, each operand read once and z, zeta,
+    mu written once."""
+    mA, nz = ops[0].shape[-2:]
+    nb = ops[0].shape[0] if ops[0].dim() == 3 else 1
+    flops = 2.0 * (2 * mA * nz + 3 * nz * nz) * n_inner * nb
+    return bound_ms(flops, _nbytes(ops) + _nbytes(ops[7:]), dname)
 
 
 def log(msg: str) -> None:
@@ -54,11 +101,39 @@ def agree(kernel, plain, dname):
 
 
 def time_ms(fn, reps: int) -> float:
+    """Milliseconds per call, CUDA events around reps calls: the time a
+    caller pays per call, the host's wrapper work included wherever it
+    outlasts the device's."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds per launch on the card alone: the reps launches are
+    queued behind a device-side sleep that outlasts their enqueueing, so
+    the CUDA events see the kernels back to back and none of the host's
+    wrapper work."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # at most about 2 GHz: 2e9 cycles a second cover twice the host time
+    torch.cuda._sleep(int((2.0 * host_s + 1e-3) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -139,12 +214,33 @@ def _pdhg_case(name, B, dtype, per_el_q=False, seed=0):
 # 13 that _pdhg_case builds: the average round has no step count/anchors)
 _PDHG_PHASES = {"b1": ("pdhg_halpern_round", 13),
                 "b2": ("pdhg_average_round", 10)}
+_PDHG_CASES = (("lands", 8, False), ("ssn", 2, False), ("ssn", 4096, False),
+               ("storm", 2, False), ("ssn", 2, True))
+
+
+def _b1_variants(args):
+    """The Halpern round's variants to check at these operands: the plan's
+    first, then the other one wherever the cluster takes the shape."""
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+    m, n = args[0].shape
+    B = args[5].shape[0]
+    it = args[0].element_size()
+    plan = pk._plan(B, m, n, it)
+    out = [plan]
+    rows = ("rows", pk._rows_per_block("pdhg_halpern_round", B,
+                                       (4 * n + 4 * m) * it))
+    shape = pk._cluster_shape(B, m, n, it)
+    for alt in (rows, ("cluster",) + shape if shape else None):
+        if alt is not None and alt not in out:
+            out.append(alt)
+    return out
 
 
 def phase_pdhg(results, phase):
     """One PDHG round kernel against its plain version, f32 and f64, at
     the shapes of the SD step (B = 2EB), the MC panel (B = 4096), storm,
-    lands and per-element q."""
+    lands and per-element q; for B1 each variant the shape admits, timed
+    in the same call."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -152,36 +248,69 @@ def phase_pdhg(results, phase):
     kernel = getattr(pk, name)
     plain = getattr(pk, name + "_ref")
     n_inner = 80
-    worst = 0.0
-    for inst, B, per_el in (("lands", 8, False), ("ssn", 2, False),
-                            ("ssn", 4096, False), ("storm", 2, False),
-                            ("ssn", 2, True)):
+    worst = {}
+    for inst, B, per_el in _PDHG_CASES:
         for dtype in (torch.float32, torch.float64):
             args = _pdhg_case(inst, B, dtype, per_el_q=per_el)[:n_args]
-            out = kernel(*args, n_inner)
-            torch.cuda.synchronize()
+            dname = str(dtype).replace("torch.", "")
+            reps = 3 if B >= 1024 else 20
             ref = plain(*args, n_inner)
             torch.cuda.synchronize()
-            abs_err = max(float((o - r).abs().max())
-                          for o, r in zip(out, ref))
-            dname = str(dtype).replace("torch.", "")
-            ok, err = agree(out, ref, dname)
-            reps = 3 if B >= 1024 else 20
-            ms = time_ms(lambda: kernel(*args, n_inner), reps)
             plain_ms = time_ms(lambda: plain(*args, n_inner), reps)
-            log(f"[{phase}] {inst} B={B} "
-                f"q={'per-el' if per_el else 'shared'} {dname}: "
-                f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
-                f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version on {inst} B={B} {dname}")
-            if dtype == torch.float32 and inst == "ssn" and B == 2 \
-                    and not per_el:
-                results[name].update(ms=ms, plain_ms=plain_ms)
-            worst = max(worst, abs_err)
-    results[name]["max_abs_err"] = worst
+            bms, _ = pdhg_bound(args, n_inner, dname)
+            plans = _b1_variants(args) if phase == "b1" else [None]
+            times = {}
+            for plan in plans:
+                kw = {} if plan is None else {"plan": plan}
+                out = kernel(*args, n_inner, **kw)
+                torch.cuda.synchronize()
+                abs_err = max(float((o - r).abs().max())
+                              for o, r in zip(out, ref))
+                ok, err = agree(out, ref, dname)
+                ms = device_ms(lambda: kernel(*args, n_inner, **kw), reps)
+                call = time_ms(lambda: kernel(*args, n_inner, **kw), reps)
+                times[plan] = (ms, call)
+                tag = "" if plan is None else f" {plan[0]}{plan[1:]}"
+                log(f"[{phase}] {inst} B={B} "
+                    f"q={'per-el' if per_el else 'shared'} {dname}{tag}: "
+                    f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
+                    f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
+                    f"call_ms={call:.4f} plain_ms={plain_ms:.4f} "
+                    f"bound_ms={bms:.6f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {plan} disagrees with its "
+                                         f"plain version on {inst} B={B} "
+                                         f"{dname}")
+                key = name if plan is None or plan[0] == "rows" \
+                    else "pdhg_halpern_cluster"
+                worst[key] = max(worst.get(key, 0.0), abs_err)
+            if dname != "float32" or inst != "ssn" or per_el:
+                continue
+            rows = [v for p, v in times.items() if p and p[0] == "rows"]
+            clus = [v for p, v in times.items() if p and p[0] == "cluster"]
+            bound = pdhg_bound(args, n_inner, dname)
+            shape = f"ssn B={B} f32"
+            if phase == "b2" and B == 2:
+                results[name].update(ms=times[None][0],
+                                     call_ms=times[None][1],
+                                     plain_ms=plain_ms, shape=shape)
+                _set_bound(results[name], bound)
+            elif phase == "b1" and B == 2:
+                results["pdhg_halpern_cluster"].update(
+                    ms=clus[0][0], call_ms=clus[0][1], plain_ms=plain_ms,
+                    rowblock_ms=rows[0][0], shape=shape)
+                _set_bound(results["pdhg_halpern_cluster"], bound)
+                results[name]["ssn_b2_ms"] = rows[0][0]
+            elif phase == "b1" and B == 4096:
+                results[name].update(ms=rows[0][0], call_ms=rows[0][1],
+                                     plain_ms=plain_ms, shape=shape)
+                _set_bound(results[name], bound)
+    for key, v in worst.items():
+        results[key]["max_abs_err"] = v
+
+
+def _set_bound(entry, bound):
+    entry["bound_ms"], entry["bound_by"] = bound
 
 
 def _master_after_steps(name, steps):
@@ -209,62 +338,185 @@ def _flagship_pdhg():
     return PDHGConfig(tol=1e-4, max_iters=60_000)
 
 
-def phase_b3(results):
-    import torch
+def _b3_cases(names=("ssn", "storm")):
+    """(name, float64 operands) of the named instances' masters of a real
+    SD state, advanced 100 plain ADMM steps so an interval starts
+    mid-solve."""
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.prox_qp import admm_operands
 
-    worst = 0.0
-    for name in ("ssn", "storm"):
+    for name in names:
         (p_diag, g, A, l, u, is_eq), qp = _master_after_steps(name, 3)
-        ops64 = admm_operands(p_diag, g, A, l, u, is_eq, qp, qp.rho)
-        # a few intervals of the plain loop first: start mid-solve
-        ops64 = list(ops64)
+        ops64 = list(admm_operands(p_diag, g, A, l, u, is_eq, qp, qp.rho))
         ops64[7:] = ak.admm_round_ref(*ops64, 100, qp.over_relax, qp.sigma)
-        ops64 = [t.contiguous() for t in ops64]
+        yield name, [t.contiguous() for t in ops64], qp
+
+
+def _batch_of(ops, nb):
+    """nb distinct masters: the linear term and the start scaled per QP."""
+    import torch
+    scale = 1.0 + 0.05 * torch.arange(nb, dtype=ops[0].dtype,
+                                      device=ops[0].device)
+    out = []
+    for i, t in enumerate(ops):
+        tb = torch.stack([t] * nb)
+        if i in (3, 7):     # g, z
+            tb = tb * scale[:, None]
+        out.append(tb.contiguous())
+    return out
+
+
+def _admm_plain(ops, n_inner, alpha, sigma):
+    """The plain version, one QP at a time over a leading batch axis."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
+    if ops[0].dim() == 2:
+        return ak.admm_round_ref(*ops, n_inner, alpha, sigma)
+    outs = [ak.admm_round_ref(*(t[b] for t in ops), n_inner, alpha, sigma)
+            for b in range(ops[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def phase_b3(results, plans=None):
+    """B3 against its plain version for the ssn and storm masters in f32
+    and f64, unbatched and as a batch of 8; ``plans`` (the sweep) times
+    every cluster size that fits instead of the plan's alone, and lands'
+    small master too."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
+
+    worst = 0.0
+    names = ("ssn", "storm") if plans is None else ("lands", "ssn", "storm")
+    for name, ops64, qp in _b3_cases(names):
+        args = (qp.check_every, qp.over_relax, qp.sigma)
+        for dtype, nb in ((torch.float32, 1), (torch.float64, 1),
+                          (torch.float64, 8)):
+            ops = [t.to(dtype).contiguous() for t in ops64]
+            if nb > 1:
+                ops = _batch_of(ops, nb)
+            dname = str(dtype).replace("torch.", "")
+            mA, nz = ops[0].shape[-2:]
+            ref = _admm_plain(ops, *args)
+            torch.cuda.synchronize()
+            plain_ms = time_ms(lambda: _admm_plain(ops, *args), 20)
+            bms, by = admm_bound(ops, qp.check_every, dname)
+            it = ops[0].element_size()
+            sizes = [ak._plan(mA, nz, it)] if plans is None else [
+                C for C in (1, 2, 4, 8)
+                if ak._smem_bytes(C, mA, nz, it) <= ak._SMEM_MAX]
+            for C in sizes:
+                out = ak.admm_round(*ops, *args, plan=C)
+                torch.cuda.synchronize()
+                abs_err = max(float((o - r).abs().max())
+                              for o, r in zip(out, ref))
+                ok, err = agree(out, ref, dname)
+                again = ak.admm_round(*ops, *args, plan=C)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, o) for a, o in zip(again, out))
+                ms = device_ms(lambda: ak.admm_round(*ops, *args, plan=C),
+                               50)
+                call = time_ms(lambda: ak.admm_round(*ops, *args, plan=C),
+                               50)
+                log(f"[b3] {name} master x{nb} nz={nz} mA={mA} {dname} "
+                    f"cluster={C}: max_rel_err={err:.3e} (tol "
+                    f"{TOL[dname]:g}) max_abs_err={abs_err:.3e} "
+                    f"kernel_ms={ms:.4f} call_ms={call:.4f} "
+                    f"plain_ms={plain_ms:.4f} "
+                    f"bound_ms={bms:.6f} deterministic={same} "
+                    f"{'ok' if ok and same else 'FAIL'}")
+                if not (ok and same):
+                    raise AssertionError(f"admm_round (cluster {C}) "
+                                         f"disagrees with its plain version "
+                                         f"on {name} x{nb} {dname}")
+                worst = max(worst, abs_err)
+                if plans is None and name == "ssn" and nb == 1 \
+                        and dtype == torch.float64:
+                    results["admm_round"].update(
+                        ms=ms, call_ms=call, plain_ms=plain_ms, cluster=C,
+                        shape="ssn master f64", bound_ms=bms, bound_by=by)
+    results["admm_round"]["max_abs_err"] = worst
+
+
+def phase_sweep():
+    """Every variant the kernels admit, timed at the shapes their plans
+    decide between (one call, one card): the Halpern round's row-block
+    kernel against its cluster kernel over cluster sizes and rows per
+    cluster, and B3 over cluster sizes."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+
+    n_inner = 80
+    for inst, B, dtype in (
+            ("ssn", 2, torch.float32), ("ssn", 2, torch.float64),
+            ("ssn", 3, torch.float32), ("ssn", 16, torch.float32),
+            ("ssn", 16, torch.float64), ("ssn", 64, torch.float32),
+            ("ssn", 64, torch.float64), ("ssn", 128, torch.float32),
+            ("ssn", 256, torch.float32), ("ssn", 256, torch.float64),
+            ("ssn", 1024, torch.float32), ("storm", 2, torch.float32),
+            ("storm", 16, torch.float32)):
+        args = _pdhg_case(inst, B, dtype)
+        m, n = args[0].shape
+        it = args[0].element_size()
+        dname = str(dtype).replace("torch.", "")
+        plans = [("rows", pk._rows_per_block("pdhg_halpern_round", B,
+                                             (4 * n + 4 * m) * it))]
+        for C in pk._CLUSTER_SIZES:
+            for R in pk._CLUSTER_ROWS:
+                if R <= max(B, 1) and pk._cluster_fits(C, R, m, n, it):
+                    plans.append(("cluster", C, R))
+        ref = pk.pdhg_halpern_round_ref(*args, n_inner)
+        reps = 3 if B >= 1024 else 10
+        for plan in plans:
+            occ = pk._clusters_per_wave(*plan[1:], m, n, it) \
+                if plan[0] == "cluster" else None
+            if occ == 0:
+                log(f"[sweep] b1 {inst} B={B} {dname} {plan}: the card "
+                    f"cannot schedule it (max_active_clusters=0)")
+                continue
+            out = pk.pdhg_halpern_round(*args, n_inner, plan=plan)
+            torch.cuda.synchronize()
+            ok, err = agree(out, ref, dname)
+            ms = device_ms(lambda: pk.pdhg_halpern_round(
+                *args, n_inner, plan=plan), reps)
+            log(f"[sweep] b1 {inst} B={B} {dname} {plan}: "
+                f"kernel_ms={ms:.4f} max_rel_err={err:.2e} "
+                f"max_active_clusters={occ} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"pdhg_halpern_round {plan} disagrees "
+                                     f"with its plain version on {inst} "
+                                     f"B={B} {dname}")
+    phase_b3({"admm_round": {}}, plans="all")
+    # each planned kernel's fixed cost (launch, loading its matrices) and
+    # its cost per step, from device times at 1 step and at a full round
+    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
+    for inst, B, dtype in (("ssn", 2, torch.float32),
+                           ("ssn", 2, torch.float64)):
+        args = _pdhg_case(inst, B, dtype)
+        plan = pk._plan(B, *args[0].shape, args[0].element_size())
+        t1, t80 = (device_ms(lambda: pk.pdhg_halpern_round(
+            *args, k, plan=plan), 20) for k in (1, 80))
+        log(f"[sweep] b1 {inst} B={B} {dtype} {plan}: 1 step {t1:.4f} ms, "
+            f"80 steps {t80:.4f} ms: {1e3 * (t80 - t1) / 79:.2f} us per "
+            f"step, {1e3 * (t1 - (t80 - t1) / 79):.1f} us fixed")
+    for name, ops64, qp in _b3_cases():
         for dtype in (torch.float32, torch.float64):
             ops = [t.to(dtype).contiguous() for t in ops64]
-            out = ak.admm_round(*ops, qp.check_every, qp.over_relax, qp.sigma)
-            torch.cuda.synchronize()
-            ref = ak.admm_round_ref(*ops, qp.check_every, qp.over_relax,
-                                    qp.sigma)
-            torch.cuda.synchronize()
-            abs_err = max(float((o - r).abs().max())
-                          for o, r in zip(out, ref))
-            dname = str(dtype).replace("torch.", "")
-            ok, err = agree(out, ref, dname)
-            ms = time_ms(lambda: ak.admm_round(*ops, qp.check_every,
-                                               qp.over_relax, qp.sigma), 50)
-            plain_ms = time_ms(lambda: ak.admm_round_ref(
-                *ops, qp.check_every, qp.over_relax, qp.sigma), 50)
-            mA, nz = ops[0].shape
-            log(f"[b3] {name} master nz={nz} mA={mA} {dname}: "
-                f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
-                f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
-                f"plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"admm_round disagrees with its plain "
-                                     f"version on {name} {dname}")
-            if dtype == torch.float64 and name == "ssn":
-                results["admm_round"].update(ms=ms, plain_ms=plain_ms)
-            worst = max(worst, abs_err)
-    results["admm_round"]["max_abs_err"] = worst
+            C = ak._plan(*ops[0].shape, ops[0].element_size())
+            t1, t25 = (device_ms(lambda: ak.admm_round(
+                *ops, k, qp.over_relax, qp.sigma, plan=C), 50)
+                for k in (1, 25))
+            log(f"[sweep] b3 {name} {dtype} cluster={C}: 1 step {t1:.4f} "
+                f"ms, 25 steps {t25:.4f} ms: {1e3 * (t25 - t1) / 24:.2f} us "
+                f"per step, {1e3 * (t1 - (t25 - t1) / 24):.1f} us fixed")
 
 
 def phase_main(results, iters):
     import numpy as np
     import torch
-    from sqlp_tpu_torch.config import QPConfig, SDConfig, autoscale_capacities
     from sqlp_tpu_torch.models.instance import load_instance
     from sqlp_tpu_torch.sd.driver import SDSolver
 
-    # the flagship CLI configuration (sqlp_tpu_torch/cli.py defaults with
-    # --schedule adaptive --rho 1e-3), capacities autoscaled to iters
-    cfg = SDConfig(dtype="float32", quad_schedule="adaptive",
-                   quad_scalar_init=1e-3, max_cuts=96, scenarios_per_iter=1,
-                   pdhg=_flagship_pdhg(),
-                   qp=QPConfig(tol=1e-7, max_iters=4_000))
-    cfg = autoscale_capacities(cfg, iters)
+    cfg = _flagship_config(iters)
     dev = torch.device("cuda")
     _reset_counts()
     inst = load_instance("ssn", dtype=cfg.jdtype, device=dev)
@@ -290,20 +542,113 @@ def phase_main(results, iters):
             "qp_iters", "qp_err", "qp_converged", "n_duals", "n_cuts_live",
             "crossover_accepted")))
     log(f"[main] launches: {json.dumps(counts)}")
-    for k in ("pdhg_halpern_round", "admm_round"):
+    for k in ("pdhg_halpern_round", "pdhg_halpern_cluster", "admm_round"):
         results[k]["launches"] = counts[k]
     if not all(math.isfinite(v) for v in (lb, ub, hw)):
         raise AssertionError(f"non-finite bounds lb={lb} ub={ub} hw={hw}")
-    missing = [k for k in ("pdhg_halpern_round", "admm_round")
-               if counts[k] <= 0]
+    missing = [k for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
+                           "admm_round") if counts[k] <= 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    return lb, ub
+
+
+def _flagship_config(iters, scheme="halpern"):
+    """The flagship CLI configuration (sqlp_tpu_torch/cli.py defaults with
+    --schedule adaptive --rho 1e-3), capacities autoscaled to iters."""
+    from sqlp_tpu_torch.config import (PDHGConfig, QPConfig, SDConfig,
+                                       autoscale_capacities)
+    cfg = SDConfig(dtype="float32", quad_schedule="adaptive",
+                   quad_scalar_init=1e-3, max_cuts=96, scenarios_per_iter=1,
+                   pdhg=PDHGConfig(scheme=scheme, tol=1e-4,
+                                   max_iters=60_000),
+                   qp=QPConfig(tol=1e-7, max_iters=4_000))
+    return autoscale_capacities(cfg, iters)
+
+
+def phase_profile(path, iters):
+    """Where a path's time goes: ssn at the flagship settings (the main
+    path's single SD run, or the replicated path's 8 lockstep replications
+    under the restart-to-average scheme), a warm-up of iters iterations,
+    then iters iterations with a synchronize and a host clock around each
+    phase of the SD step, then 10 iterations under torch.profiler for the
+    device's busy share and its time by kernel."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd import algorithm
+    from sqlp_tpu_torch.sd.driver import SDReplications, SDSolver
+
+    tag = f"[profile {path}]"
+    replicated = path == "replicated"
+    cfg = _flagship_config(2 * iters + 10,
+                           "average" if replicated else "halpern")
+    inst = load_instance("ssn", dtype=cfg.jdtype)
+    if replicated:
+        solver = SDReplications(inst, cfg, n_replications=8,
+                                x0=np.zeros(inst.n1), seed=0)
+    else:
+        solver = SDSolver(inst, cfg, x0=np.zeros(inst.n1), seed=0)
+    solver.run(iters)
+    spent = {}
+    phases = {"recourse PDHG solve": "solve_batch", "master QP": "solve_qp",
+              "crossover": "sharpen_duals", "dual pool": "push_duals",
+              "cut build": "build_sasa_cut"}
+    originals = {fn: getattr(algorithm, fn) for fn in phases.values()}
+
+    def timed(label, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    for label, fn in phases.items():
+        setattr(algorithm, fn, timed(label, originals[fn]))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for fn, orig in originals.items():
+            setattr(algorithm, fn, orig)
+    log(f"{tag} ssn iterations {iters + 1}-{2 * iters} with a synchronize "
+        f"at each phase edge: {wall:.3f}s ({iters / wall:.3f} it/s)")
+    for label, sec in sorted(spent.items(), key=lambda kv: -kv[1]):
+        log(f"{tag}   {label}: {sec:.3f}s ({100 * sec / wall:.1f} %)")
+    rest = wall - sum(spent.values())
+    log(f"{tag}   rest of the step (host): {rest:.3f}s "
+        f"({100 * rest / wall:.1f} %)")
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solver.run(10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e6
+    log(f"{tag} 10 iterations under torch.profiler: wall {wall:.3f}s, "
+        f"device busy {busy:.3f}s ({100 * busy / wall:.1f} % of the wall; "
+        f"the profiler's host cost inflates the wall)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+        log(f"{tag}   {e.key[:70]}: {e.device_time_total / 1e3:.1f} ms in "
+            f"{e.count} launches")
 
 
 def _reset_counts():
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     pk.launches = 0
+    pk.cluster_launches = 0
     pk.average_launches = 0
     ak.launches = 0
 
@@ -312,6 +657,7 @@ def _counts():
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     return {"pdhg_halpern_round": pk.launches,
+            "pdhg_halpern_cluster": pk.cluster_launches,
             "pdhg_average_round": pk.average_launches,
             "admm_round": ak.launches}
 
@@ -319,20 +665,13 @@ def _counts():
 def phase_replicated(results, iters):
     import numpy as np
     import torch
-    from sqlp_tpu_torch.config import (PDHGConfig, QPConfig, SDConfig,
-                                       autoscale_capacities)
     from sqlp_tpu_torch.models.instance import load_instance
     from sqlp_tpu_torch.sd.compromise import compromise_decision
     from sqlp_tpu_torch.sd.driver import SDReplications
 
     # the flagship settings under the restart-to-average scheme: every
     # recourse solve (SD panel, MC panel, f64 rung) runs kernel B2
-    cfg = SDConfig(dtype="float32", quad_schedule="adaptive",
-                   quad_scalar_init=1e-3, max_cuts=96, scenarios_per_iter=1,
-                   pdhg=PDHGConfig(scheme="average", tol=1e-4,
-                                   max_iters=60_000),
-                   qp=QPConfig(tol=1e-7, max_iters=4_000))
-    cfg = autoscale_capacities(cfg, iters)
+    cfg = _flagship_config(iters, "average")
     dev = torch.device("cuda")
     R = 8
     _reset_counts()
@@ -380,8 +719,9 @@ def phase_replicated(results, iters):
     if counts["pdhg_average_round"] <= 0 or counts["admm_round"] <= 0:
         raise AssertionError(f"replicated path never launched B2 or B3: "
                              f"{counts}")
-    if counts["pdhg_halpern_round"] != 0:
-        raise AssertionError(f"replicated path launched the Halpern kernel "
+    if counts["pdhg_halpern_round"] != 0 \
+            or counts["pdhg_halpern_cluster"] != 0:
+        raise AssertionError(f"replicated path launched a Halpern kernel "
                              f"under scheme='average': {counts}")
 
 
@@ -432,7 +772,8 @@ def main() -> int:
     ap.add_argument("--rep-iters", type=int, default=100,
                     help="SD iterations of the replicated path")
     ap.add_argument("--phases",
-                    default="device,b1,b2,b3,main,replicated,cli,cli_rep")
+                    default="device,b1,b2,b3,main,main2,replicated,cli,"
+                    "cli_rep")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -450,6 +791,10 @@ def main() -> int:
             "name": "pdhg_halpern_round", "route": "cuda",
             "source": src + "pdhg_halpern_round.cu",
             "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:236"},
+        "pdhg_halpern_cluster": {
+            "name": "pdhg_halpern_cluster", "route": "cuda",
+            "source": src + "pdhg_halpern_cluster.cu",
+            "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:236"},
         "pdhg_average_round": {
             "name": "pdhg_average_round", "route": "cuda",
             "source": src + "pdhg_average_round.cu",
@@ -460,6 +805,7 @@ def main() -> int:
             "replaces": "sqlp_tpu/ops/pallas/admm_kernel.py:95"},
     }
     t0 = time.perf_counter()
+    first = None
     for ph in phases:
         tp = time.perf_counter()
         if ph == "device":
@@ -468,8 +814,21 @@ def main() -> int:
             phase_pdhg(results, ph)
         elif ph == "b3":
             phase_b3(results)
+        elif ph == "sweep":
+            phase_sweep()
+        elif ph == "profile":
+            phase_profile("main", 100)
+            phase_profile("replicated", 20)
         elif ph == "main":
-            phase_main(results, args.iters)
+            first = phase_main(results, args.iters)
+        elif ph == "main2":
+            # the same seeded run again: the bounds must repeat bitwise
+            again = phase_main(results, args.iters)
+            log(f"[main2] lb_est, mc_ub equal to the first run: "
+                f"{again == first}")
+            if again != first:
+                raise AssertionError(f"seeded main path not deterministic: "
+                                     f"{first} then {again}")
         elif ph == "replicated":
             phase_replicated(results, args.rep_iters)
         elif ph == "cli":
@@ -480,6 +839,8 @@ def main() -> int:
             raise ValueError(f"unknown phase {ph}")
         log(f"[{ph}] phase done in {time.perf_counter() - tp:.1f}s")
     log(f"[total] {time.perf_counter() - t0:.1f}s")
+    for entry in results.values():
+        entry.setdefault("library_ms", None)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

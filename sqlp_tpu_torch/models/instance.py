@@ -5,7 +5,8 @@ Port of record: ``sqlp_tpu/models/instance.py`` (``InstanceArrays`` :37-56,
 :176, ``load_instance`` :186). The host compile (bound folding included)
 is the same numpy code, so the arrays are bitwise equal to the JAX
 package's; only the final placement differs: ``dtype`` and ``device`` are
-explicit arguments.
+explicit arguments. ``device`` defaults to the CUDA card and raises on a
+host without one (``utils/torchsetup.py:resolve_device``).
 
     stage 1:  min c@x   s.t. A1 x {sense} b1,  lb1 <= x <= ub1
     stage 2:  min q@y   s.t. T x + W y {sense} r,  lb2 <= y <= ub2
@@ -29,6 +30,7 @@ from sqlp_tpu_torch.models.smps_sto import StoData, read_sto
 from sqlp_tpu_torch.models.smps_tim import TimData, read_tim
 from sqlp_tpu_torch.models.stage import (SENSE_G, SENSE_L, StageLP,
                                          get_smps_stage_template)
+from sqlp_tpu_torch.utils.torchsetup import resolve_device
 
 ARRAY_FIELDS = ("c", "A1", "b1", "senses1", "lb1", "ub1",
                 "q", "W", "T", "r", "senses2", "lb2", "ub2")
@@ -93,9 +95,10 @@ class Instance:
 
 
 def arrays_from_numpy(fields, dtype: torch.dtype = torch.float32,
-                      device="cpu") -> InstanceArrays:
+                      device="cuda") -> InstanceArrays:
     """InstanceArrays from a mapping of field name -> array-like (senses
     keep their integer type)."""
+    device = resolve_device(device)
     out = {}
     for name in ARRAY_FIELDS:
         a = np.array(fields[name])
@@ -107,11 +110,12 @@ def arrays_from_numpy(fields, dtype: torch.dtype = torch.float32,
 
 
 def instance_from_numpy(src, dtype: Optional[torch.dtype] = None,
-                        device="cpu") -> Instance:
+                        device="cuda") -> Instance:
     """The port's Instance from another compiled instance with the same
     attributes (the JAX package's ``Instance`` qualifies): its array
     fields are read with ``np.asarray`` and placed as tensors, the host
     metadata (parsed files, stage templates) is shared as is."""
+    device = resolve_device(device)
     a = {f: np.asarray(getattr(src.arrays, f)) for f in ARRAY_FIELDS}
     if dtype is None:
         dtype = getattr(torch, str(a["c"].dtype))
@@ -128,9 +132,10 @@ def instance_from_numpy(src, dtype: Optional[torch.dtype] = None,
 
 def compile_instance(cor: CorData, tim: TimData, sto: StoData,
                      name: str = "", dtype: torch.dtype = torch.float32,
-                     device="cpu", fold_bounds: bool = True) -> Instance:
+                     device="cuda", fold_bounds: bool = True) -> Instance:
     """Compile parsed SMPS data into dense tensors; finite stage-2 bounds
     are folded into explicit recourse rows (see the port of record)."""
+    device = resolve_device(device)
     sp1 = get_smps_stage_template(cor, tim, 1)
     sp2 = get_smps_stage_template(cor, tim, 2)
 
@@ -196,8 +201,9 @@ def find_instance_dir(name: str) -> Optional[str]:
 
 
 def load_instance(name_or_dir: str, dtype: torch.dtype = torch.float32,
-                  device="cpu", fold_bounds: bool = True) -> Instance:
+                  device="cuda", fold_bounds: bool = True) -> Instance:
     """Load an SMPS instance by name (searched) or by directory path."""
+    device = resolve_device(device)
     if os.path.isdir(name_or_dir):
         path = name_or_dir
         name = os.path.basename(os.path.normpath(path))

@@ -26,6 +26,7 @@ from sqlp_tpu_torch.models.smps_sto import (DiscreteDistribution,
                                             UniformDistribution)
 from sqlp_tpu_torch.models.smps_tim import Position
 from sqlp_tpu_torch.models.stage import SENSE_G, SENSE_L, StageLP
+from sqlp_tpu_torch.utils.torchsetup import resolve_device
 
 DIST_DISCRETE, DIST_NORMAL, DIST_UNIFORM = 0, 1, 2
 
@@ -67,9 +68,10 @@ class ScenarioModel:
 def scenario_model_from_numpy(fields, has_cost: bool = False,
                               seed_valid: bool = False, cost_idx=(),
                               dtype: torch.dtype = torch.float32,
-                              device="cpu") -> ScenarioModel:
+                              device="cuda") -> ScenarioModel:
     """Tensors from a mapping of field name -> array-like (for example the
     JAX package's ScenarioModel read through ``np.asarray``)."""
+    device = resolve_device(device)
     t = {}
     for name in SCENARIO_FIELDS:
         a = np.array(fields[name])
@@ -84,10 +86,11 @@ def scenario_model_from_numpy(fields, has_cost: bool = False,
 
 
 def build_scenario_model(sto: StoData, sp2: StageLP,
-                         dtype: torch.dtype = torch.float32, device="cpu",
+                         dtype: torch.dtype = torch.float32, device="cuda",
                          dual_system=None) -> ScenarioModel:
     """Compile a parsed sto file against the stage-2 template
     (``sqlp_tpu/models/scenario.py:92-196``)."""
+    device = resolve_device(device)
     positions: List[Position] = list(sto.indep.keys())
     R = len(positions)
     row_lookup = sp2.row_lookup

@@ -26,7 +26,18 @@ from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_G, SENSE_L
 
 
 def _batched_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    x, info = torch.linalg.solve_ex(M, rhs[..., None])
+    if M.device.type == "cpu":
+        # MKL's batched LU (2024.2, as PyTorch 2.x ships it) never returns
+        # on [16, 175, 175] with more than one intra-op thread; one thread
+        # for this call, the caller's count restored after it
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            x, info = torch.linalg.solve_ex(M, rhs[..., None])
+        finally:
+            torch.set_num_threads(threads)
+    else:
+        x, info = torch.linalg.solve_ex(M, rhs[..., None])
     x = x[..., 0]
     # singular factorizations: non-finite like jnp.linalg.solve
     return torch.where((info != 0)[:, None],

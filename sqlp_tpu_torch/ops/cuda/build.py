@@ -23,8 +23,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("pdhg_halpern_round.cu", "pdhg_average_round.cu",
-            "admm_round.cu")
+_SOURCES = ("pdhg_halpern_round.cu", "pdhg_halpern_cluster.cu",
+            "pdhg_average_round.cu", "admm_round.cu")
 _HEADERS = ("pdhg_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
@@ -39,8 +39,10 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "pdhg_halpern_round": [_I] + [_P, _P, _I] + [_P] * 15 + [_I] * 4 + [_P],
+    "pdhg_halpern_cluster": [_I, _I] + [_P, _P, _I] + [_P] * 15 + [_I] * 4
+    + [_P],
     "pdhg_average_round": [_I] + [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P],
-    "admm_round": [_P] * 13 + [_I] * 4 + [_D, _D, _P],
+    "admm_round": [_I] + [_P] * 13 + [_I] * 4 + [_D, _D, _P],
 }
 
 
@@ -122,6 +124,8 @@ def load() -> ctypes.CDLL:
                     fn = getattr(lib, f"{stem}_{suffix}")
                     fn.argtypes = args
                     fn.restype = ctypes.c_int
+            lib.pdhg_halpern_cluster_occupancy.argtypes = [_I] * 6 + [_P]
+            lib.pdhg_halpern_cluster_occupancy.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -1,13 +1,16 @@
 """PDHG restart rounds: CUDA kernel wrappers and their plain versions.
 
-Two kernels, one per restart scheme of ``solve_batch``:
+Two rounds, one per restart scheme of ``solve_batch``:
 
 - :func:`pdhg_halpern_round` ports
   ``sqlp_tpu/ops/pallas/pdhg_kernel.py:pdhg_round_pallas_halpern`` (body
-  ``_kernel_halpern``, :150-262); source
-  ``sqlp_tpu_torch/csrc/pdhg_halpern_round.cu``; plain version
-  :func:`pdhg_halpern_round_ref` (the loop of
-  ``sqlp_tpu/ops/pdhg.py:305-320``).
+  ``_kernel_halpern``, :150-262) in two variants that compute the same
+  function: the row-block kernel ``sqlp_tpu_torch/csrc/pdhg_halpern_round.cu``
+  (large panels; K read from L2) and the cluster kernel
+  ``sqlp_tpu_torch/csrc/pdhg_halpern_cluster.cu`` (small panels; K resident
+  in a thread-block cluster's shared memory). :func:`_plan` picks one from
+  the shapes and dtype alone. Plain version :func:`pdhg_halpern_round_ref`
+  (the loop of ``sqlp_tpu/ops/pdhg.py:305-320``).
 - :func:`pdhg_average_round` ports ``pdhg_round_pallas`` (body ``_kernel``,
   :106-147, 265-330); source ``sqlp_tpu_torch/csrc/pdhg_average_round.cu``;
   plain version :func:`pdhg_average_round_ref` (the loop of
@@ -22,7 +25,8 @@ kernels mask their ragged last block themselves.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,11 +34,101 @@ from sqlp_tpu_torch.ops.cuda import build
 
 # launches of each CUDA kernel in this process (the plain versions do not
 # count); chip_smoke.py resets them before driving a path
-launches = 0            # pdhg_halpern_round
+launches = 0            # pdhg_halpern_round, row-block variant
+cluster_launches = 0    # pdhg_halpern_round, cluster variant
 average_launches = 0    # pdhg_average_round
 
 _SMEM_BUDGET = 200 * 1024
+_SMEM_MAX = 227 * 1024  # dynamic shared memory one block may use (sm_90)
 _SMS = 132
+
+# The cluster variant (csrc/pdhg_halpern_cluster.cu), set from the chip
+# measurements in PERF.md (chip_smoke.py --phases sweep). It pays
+# once per launch to load K into the clusters' shared memory and once per
+# step for a cluster barrier, and wins where the row-block kernel is bound
+# by one SM's L2 bandwidth: a K too large for L1 and too few rows to fill
+# the card. Past about three waves of clusters the row-block kernel's
+# reuse of each K read across a block's rows wins again.
+_CLUSTER_MIN_K_BYTES = 128 * 1024
+_CLUSTER_SIZES = (4, 8, 16)         # CTAs per cluster; 16 is non-portable
+_CLUSTER_ROWS = (1, 2, 4, 8)        # batch rows one cluster carries
+_CLUSTER_MAX_WAVES = 3
+_CLUSTER_WARPS = 16
+_CLUSTER_REGS = 108                 # 32-bit registers of the lane arrays
+
+
+def _cluster_mi(m: int) -> int:
+    """Rows of K per lane (i = lane + 32 k, k < MI) the cluster kernel is
+    instantiated for; 0 where m is too large for it."""
+    return 6 if m <= 192 else (18 if m <= 576 else 0)
+
+
+def _cluster_smem(C: int, R: int, m: int, n: int, itemsize: int,
+                  q_rows: int) -> int:
+    """Shared memory of one CTA of the cluster kernel, in bytes (mirrors
+    csrc/pdhg_halpern_cluster.cu:cluster_smem_elems)."""
+    nc = -(-n // C)
+    return (nc * m + (2 + q_rows + 3 * R) * nc
+            + (4 + _CLUSTER_WARPS + 2) * R * m) * itemsize
+
+
+def _cluster_fits(C: int, R: int, m: int, n: int, itemsize: int) -> bool:
+    """The cluster kernel takes (C, R) at these shapes: its lane arrays fit
+    the register budget and a CTA's slice and vectors (per-row q assumed)
+    fit its shared memory."""
+    mi = _cluster_mi(m)
+    return (mi > 0 and (2 * R + 1) * mi * itemsize // 4 <= _CLUSTER_REGS
+            and _cluster_smem(C, R, m, n, itemsize, R) <= _SMEM_MAX)
+
+
+@functools.lru_cache(maxsize=256)
+def _clusters_per_wave(C: int, R: int, m: int, n: int,
+                       itemsize: int) -> int:
+    """Clusters of C CTAs and R rows each that the current card runs at
+    once at these shapes: ``cudaOccupancyMaxActiveClusters`` of that
+    launch, asked once (nothing is launched)."""
+    import ctypes
+    out = ctypes.c_int(0)
+    code = build.load().pdhg_halpern_cluster_occupancy(
+        int(itemsize == 8), C, R, R, m, n, ctypes.addressof(out))
+    build.check(code, f"cudaOccupancyMaxActiveClusters (C={C}, R={R})")
+    return out.value
+
+
+def _waves(B: int, C: int, R: int, m: int, n: int, itemsize: int) -> int:
+    """Waves of clusters a [B] panel takes at C CTAs and R rows each."""
+    clusters = -(-B // R)
+    return -(-clusters // _clusters_per_wave(C, R, m, n, itemsize))
+
+
+def _cluster_shape(B: int, m: int, n: int, itemsize: int):
+    """(C, R) of the cluster variant for a [B] panel, or None where it does
+    not take these shapes: of the sizes whose slices fit and that the card
+    can schedule, the fewest waves, then the fewest rows per cluster, then
+    the larger cluster."""
+    fit = [(C, R) for C in _CLUSTER_SIZES for R in _CLUSTER_ROWS
+           if _cluster_fits(C, R, m, n, itemsize)
+           and _clusters_per_wave(C, R, m, n, itemsize) > 0]
+    if not fit:
+        return None
+    return min(fit, key=lambda cr: (_waves(B, *cr, m, n, itemsize), cr[1],
+                                    -cr[0]))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, m: int, n: int, itemsize: int) -> tuple:
+    """The variant of the Halpern round for a [B] panel of an [m, n] K:
+    ``("cluster", C, R)`` (clusters of C CTAs, R batch rows each) or
+    ``("rows", ROWS)`` (the row-block kernel, ROWS rows per block). A
+    function of the shapes and the dtype's size, and for a K of at least
+    ``_CLUSTER_MIN_K_BYTES`` of the card's cluster occupancy."""
+    if m * n * itemsize >= _CLUSTER_MIN_K_BYTES:
+        shape = _cluster_shape(B, m, n, itemsize)
+        if shape is not None and _waves(B, *shape, m, n, itemsize) \
+                <= _CLUSTER_MAX_WAVES:
+            return ("cluster",) + shape
+    return ("rows", _rows_per_block("pdhg_halpern_round", B,
+                                    (4 * n + 4 * m) * itemsize))
 
 
 def pdhg_halpern_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh,
@@ -140,15 +234,17 @@ def _kernel_device(name: str, K: torch.Tensor) -> bool:
 
 
 def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,
-                       Lanc, n_inner: int) -> Tuple[torch.Tensor, ...]:
+                       Lanc, n_inner: int, *, plan: Optional[tuple] = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """One Halpern restart round; returns (Ycarry, Lcarry, Ycand, Lcand).
 
     K [m, n]; q [n] shared or [B, n] per element; lb, ub [n] (finite
     sentinels); is_eq [m] bool; ht [B, m]; tau, sig, kh [B]; Y, Yanc
-    [B, n]; L, Lanc [B, m]. CUDA tensors launch the kernel, CPU tensors run
-    the plain version; anything else raises.
+    [B, n]; L, Lanc [B, m]. CUDA tensors launch the kernel variant that
+    ``plan`` names (default :func:`_plan` of the shapes), CPU tensors run
+    the plain version; anything else raises. A refused launch raises.
     """
-    global launches
+    global launches, cluster_launches
     name = "pdhg_halpern_round"
     if not _kernel_device(name, K):
         return pdhg_halpern_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y,
@@ -164,21 +260,34 @@ def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,
     Lo = torch.empty_like(L)
     Yc = torch.empty_like(Y)
     Lc = torch.empty_like(L)
-    rows = _rows_per_block(name, B, (4 * n + 4 * m) * K.element_size())
+    if plan is None:
+        plan = _plan(B, m, n, K.element_size())
     lib = build.load()
-    fn = lib.pdhg_halpern_round_f32 if K.dtype == torch.float32 \
-        else lib.pdhg_halpern_round_f64
+    f64 = K.dtype == torch.float64
+    if plan[0] == "cluster":
+        fn = lib.pdhg_halpern_cluster_f64 if f64 \
+            else lib.pdhg_halpern_cluster_f32
+        head = (plan[1], plan[2])
+    elif plan[0] == "rows":
+        fn = lib.pdhg_halpern_round_f64 if f64 \
+            else lib.pdhg_halpern_round_f32
+        head = (plan[1],)
+    else:
+        raise ValueError(f"{name}: unknown plan {plan!r}")
     stream = torch.cuda.current_stream(K.device).cuda_stream
     with torch.cuda.device(K.device):
-        code = fn(rows, K.data_ptr(), q.data_ptr(), int(q.dim() == 2),
+        code = fn(*head, K.data_ptr(), q.data_ptr(), int(q.dim() == 2),
                   lb.data_ptr(), ub.data_ptr(), is_eq.data_ptr(),
                   ht.data_ptr(), tau.data_ptr(), sig.data_ptr(),
                   Y.data_ptr(), L.data_ptr(), kh.data_ptr(),
                   Yanc.data_ptr(), Lanc.data_ptr(), Yo.data_ptr(),
                   Lo.data_ptr(), Yc.data_ptr(), Lc.data_ptr(),
                   B, m, n, int(n_inner), stream)
-    build.check(code, name)
-    launches += 1
+    build.check(code, f"{name} {plan}")
+    if plan[0] == "cluster":
+        cluster_launches += 1
+    else:
+        launches += 1
     return Yo, Lo, Yc, Lc
 
 

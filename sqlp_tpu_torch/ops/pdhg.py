@@ -32,6 +32,7 @@ from sqlp_tpu_torch.config import PDHGConfig
 from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_L
 from sqlp_tpu_torch.ops.cuda.pdhg_kernel import (pdhg_average_round,
                                                  pdhg_halpern_round)
+from sqlp_tpu_torch.utils.torchsetup import resolve_device
 
 _BIG = 1e30  # stand-in for +inf inside clips (keeps NaNs away)
 
@@ -67,9 +68,10 @@ class PreparedLP:
 
 
 def prepared_lp_from_numpy(fields, dtype: Optional[torch.dtype] = None,
-                           device="cpu") -> PreparedLP:
+                           device="cuda") -> PreparedLP:
     """PreparedLP from a mapping of field name -> array-like (for example
     the JAX package's PreparedLP read through ``np.asarray``)."""
+    device = resolve_device(device)
     a = {k: np.array(fields[k]) for k in PREPARED_FIELDS}
     if dtype is None:
         dtype = getattr(torch, str(a["K"].dtype))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from sqlp_tpu_torch.config import SDConfig
+from sqlp_tpu_torch.utils.torchsetup import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,9 +154,10 @@ def init_state(inst, espec: EpigraphSpec, config: SDConfig,
 
 def default_epigraph_spec(n_epi: int = 1, obj_weight=1.0, lower_bound=0.0,
                           dtype: torch.dtype = torch.float32,
-                          device="cpu") -> EpigraphSpec:
+                          device="cuda") -> EpigraphSpec:
     """Uniform epigraph spec (one epigraph of weight 1 is the common
     case)."""
+    device = resolve_device(device)
     w = np.full(n_epi, obj_weight, np.float64) if np.isscalar(obj_weight) \
         else np.asarray(obj_weight, np.float64)
     lb = np.full(n_epi, lower_bound, np.float64) \

@@ -17,3 +17,17 @@ def configure_torch() -> None:
     """Idempotent; safe to call from every entry point."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device a public entry point places its tensors on. The default
+    is the card; asking for CUDA on a host without one raises instead of
+    going on silently on the CPU (pass ``device="cpu"`` for the plain
+    versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested (the default is the CUDA card) but "
+            f"torch.cuda.is_available() is False; pass device='cpu' to run "
+            f"on the CPU")
+    return dev

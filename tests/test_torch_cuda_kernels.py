@@ -48,25 +48,66 @@ def _round_args(name, B, dtype, dev, per_el_q):
             step.clone(), Y, L, kh, Y.clone(), L.clone())
 
 
+def _variant(name, B, dtype, variant):
+    """The plan the test forces: the wrapper's own, or its row-block or
+    cluster alternative at these shapes."""
+    inst = load_instance(name, dtype=dtype, device="cpu")
+    m, n = inst.arrays.W.shape
+    it = torch.finfo(dtype).bits // 8
+    if variant == "plan":
+        return pdhg_kernel._plan(B, m, n, it)
+    if variant == "rows":
+        return ("rows", pdhg_kernel._rows_per_block(
+            "pdhg_halpern_round", B, (4 * n + 4 * m) * it))
+    return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-10)])
-@pytest.mark.parametrize("name,B,per_el_q", [("lands", 8, False),
-                                             ("ssn", 3, True),
-                                             ("ssn", 700, False)])
-def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, dtype,
-                                          tol):
-    """Kernel vs plain version over one 80-step round; relative tolerance
-    1e-4 in f32, 1e-10 in f64 (reduction order differs). B = 700 takes
-    the several-rows-per-block path with a ragged last block."""
+@pytest.mark.parametrize("name,B,per_el_q,variant", [
+    ("lands", 8, False, "plan"), ("lands", 8, False, "cluster"),
+    ("ssn", 2, False, "plan"), ("ssn", 2, False, "rows"),
+    ("ssn", 3, True, "plan"), ("ssn", 3, True, "rows"),
+    ("ssn", 700, False, "plan"), ("ssn", 700, False, "cluster")])
+def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, variant,
+                                          dtype, tol):
+    """Each variant of the Halpern round vs the plain version over one
+    80-step round; relative tolerance 1e-4 in f32, 1e-10 in f64 (reduction
+    order differs). ssn B = 2 and B = 3 take the cluster kernel under the
+    plan; B = 700 the row-block kernel with several rows per block and a
+    ragged last block (forced: the cluster kernel with a ragged last
+    cluster). Each launch counts under its own variant."""
+    plan = _variant(name, B, dtype, variant)
+    if variant == "plan" and name == "ssn":
+        assert plan[0] == ("rows" if B == 700 else "cluster")
     args = _round_args(name, B, dtype, cuda, per_el_q)
-    before = pdhg_kernel.launches
-    out = pdhg_kernel.pdhg_halpern_round(*args, 80)
+    before = (pdhg_kernel.launches, pdhg_kernel.cluster_launches)
+    out = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
     torch.cuda.synchronize()
-    assert pdhg_kernel.launches == before + 1
+    clustered = plan[0] == "cluster"
+    assert (pdhg_kernel.launches, pdhg_kernel.cluster_launches) == (
+        before[0] + (not clustered), before[1] + clustered)
     ref = pdhg_kernel.pdhg_halpern_round_ref(*args, 80)
     for o, r in zip(out, ref):
         scale = 1.0 + float(r.abs().max())
         assert float((o - r).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_kernels_are_deterministic(cuda, dtype):
+    """Two launches of the cluster Halpern round (ssn, B = 2) and of the
+    cluster B3 (a storm-shaped master, eight CTAs) give bitwise-equal
+    outputs: every cross-CTA sum runs in a fixed rank order."""
+    args = _round_args("ssn", 2, dtype, cuda, False)
+    plan = _variant("ssn", 2, dtype, "plan")
+    assert plan[0] == "cluster"
+    a = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
+    b = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ops, cfg = _master_ops(403, 122, cuda, dtype)
+    a = admm_kernel.admm_round(*ops, 25, cfg.over_relax, cfg.sigma)
+    b = admm_kernel.admm_round(*ops, 25, cfg.over_relax, cfg.sigma)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -99,7 +140,7 @@ def test_solve_batch_average_scheme_runs_the_kernel(cuda):
     1e-9; only the reduction order differs)."""
     from sqlp_tpu_torch.config import PDHGConfig
     from sqlp_tpu_torch.ops.pdhg import solve_batch
-    inst = load_instance("transship", dtype=torch.float64)
+    inst = load_instance("transship", dtype=torch.float64, device="cpu")
     a = inst.arrays
     g = torch.Generator().manual_seed(2)
     H = a.r[None, :] + 0.1 * torch.rand((16, a.r.shape[0]), generator=g,
@@ -143,6 +184,61 @@ def test_admm_round_matches_plain(cuda, dtype, tol):
     outb = admm_kernel.admm_round(*batched, 25, cfg.over_relax, cfg.sigma)
     for o, ob in zip(out, outb):
         assert torch.equal(ob[2], o)
+
+
+def _master_ops(mA, nz, dev, dtype, seed=3):
+    """Operands of a random well-conditioned master QP at a real master's
+    shape (ssn 187 x 90, storm 403 x 122)."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn((mA, nz), generator=g, dtype=torch.float64)
+    l = -torch.rand(mA, generator=g, dtype=torch.float64)
+    u = torch.rand(mA, generator=g, dtype=torch.float64)
+    l[:7], u[:7] = -np.inf, np.inf
+    p = torch.rand(nz, generator=g, dtype=torch.float64)
+    c = torch.randn(nz, generator=g, dtype=torch.float64)
+    is_eq = torch.zeros(mA, dtype=torch.bool)
+    cfg = QPConfig()
+    ops = [o.to(dev, dtype).contiguous()
+           for o in admm_operands(p, c, A, l, u, is_eq, cfg)]
+    return ops, cfg
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("mA,nz", [(187, 90), (403, 122)])
+def test_admm_cluster_matches_plain(cuda, mA, nz, dtype, tol):
+    """The cluster B3 at the ssn and storm master shapes vs the plain
+    version over one 25-step interval, unbatched and with a leading batch
+    of 8 distinct masters (one cluster each), for every cluster size whose
+    slices fit; the plan takes the largest, 8."""
+    ops, cfg = _master_ops(mA, nz, cuda, dtype)
+    it = ops[0].element_size()
+    sizes = [C for C in (1, 2, 4, 8)
+             if admm_kernel._smem_bytes(C, mA, nz, it)
+             <= admm_kernel._SMEM_MAX]
+    assert admm_kernel._plan(mA, nz, it) == sizes[-1] == 8
+    ref = admm_kernel.admm_round_ref(*ops, 25, cfg.over_relax, cfg.sigma)
+    scale = 1.0 + 0.1 * torch.arange(8, dtype=dtype, device=cuda)
+    batched = [torch.stack([o] * 8) for o in ops]
+    batched[3] = batched[3] * scale[:, None]      # g differs per master
+    refb = [admm_kernel.admm_round_ref(*(t[b] for t in batched), 25,
+                                       cfg.over_relax, cfg.sigma)
+            for b in range(8)]
+    for C in sizes:
+        before = admm_kernel.launches
+        out = admm_kernel.admm_round(*ops, 25, cfg.over_relax, cfg.sigma,
+                                     plan=C)
+        outb = admm_kernel.admm_round(*batched, 25, cfg.over_relax,
+                                      cfg.sigma, plan=C)
+        torch.cuda.synchronize()
+        assert admm_kernel.launches == before + 2
+        for o, r in zip(out, ref):
+            assert float((o - r).abs().max()) <= tol * (
+                1 + float(r.abs().max()))
+        for b in range(8):
+            for o, r in zip(outb, refb[b]):
+                assert float((o[b] - r).abs().max()) <= tol * (
+                    1 + float(r.abs().max()))
 
 
 def test_wrappers_refuse_bad_operands(cuda):

@@ -49,7 +49,7 @@ def _assert_same(port_inst, jax_inst):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("name", INSTANCES)
 def test_instance_arrays_bitwise_equal(name, dtype):
-    port = load_instance(name, dtype=getattr(torch, dtype))
+    port = load_instance(name, dtype=getattr(torch, dtype), device="cpu")
     ref = jax_load_instance(name, dtype=getattr(jnp, dtype))
     _assert_same(port, ref)
 
@@ -58,7 +58,7 @@ def test_instance_from_numpy_round_trip():
     """instance_from_numpy carries the JAX instance's arrays over as they
     are (dtype inferred)."""
     ref = jax_load_instance("transship", dtype=jnp.float64)
-    port = instance_from_numpy(ref)
+    port = instance_from_numpy(ref, device="cpu")
     assert port.arrays.W.dtype == torch.float64
     _assert_same(port, ref)
 
@@ -69,7 +69,7 @@ def test_iid_sampling_matches_marginals():
     0.01: four standard errors at 40000 draws); the same seed repeats the
     panel exactly; an antithetic panel pairs its halves as (u, 1 - u), so
     the demand's 3 / 7 outcomes mirror and 5 stays 5."""
-    inst = load_instance("lands", dtype=torch.float64)
+    inst = load_instance("lands", dtype=torch.float64, device="cpu")
     m = inst.scenario_model
     g = torch.Generator().manual_seed(3)
     v = sample_values(g, m, 40_000)[:, 0].numpy()

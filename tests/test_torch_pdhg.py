@@ -56,7 +56,7 @@ def numpy_panel(inst, B, x, seed):
 
 
 def _both(name, B, seed, per_el_q=False):
-    port = load_instance(name, dtype=torch.float64)
+    port = load_instance(name, dtype=torch.float64, device="cpu")
     ref = jax_load_instance(name, dtype=jnp.float64)
     x = np.full(port.n1, _X[name])
     H = numpy_panel(port, B, x, seed)
@@ -85,7 +85,8 @@ def test_prepare_lp_matches_jax(name):
     prepared_lp_from_numpy carries the JAX PreparedLP over bitwise."""
     _, lp, jlp, _, _ = _both(name, 1, 0)
     carried = prepared_lp_from_numpy({f: getattr(jlp, f)
-                                      for f in PREPARED_FIELDS})
+                                      for f in PREPARED_FIELDS},
+                                     device="cpu")
     for f in PREPARED_FIELDS:
         a, b = getattr(lp, f), getattr(jlp, f)
         np.testing.assert_array_equal(getattr(carried, f).numpy(),
@@ -248,7 +249,7 @@ def test_lands_subgradient_golden():
     LP along the same path) and is a valid subgradient of Q, like the
     reference's golden vertex [-11, -6, -19, 0] (test/sgd_example.jl:28),
     which is one point of the same optimal dual face."""
-    port = load_instance("lands", dtype=torch.float64)
+    port = load_instance("lands", dtype=torch.float64, device="cpu")
     ref = jax_load_instance("lands", dtype=jnp.float64)
     a = port.arrays
     T = a.T.numpy()

@@ -75,7 +75,7 @@ def _run_pair(name, iters, seed):
     and stats, the JAX new states and stats, and the batched master QP the
     port solved (operands, keywords)."""
     cfg, jcfg = _configs()
-    port = load_instance(name, dtype=torch.float64)
+    port = load_instance(name, dtype=torch.float64, device="cpu")
     ref = jax_load_instance(name, dtype=jnp.float64)
     ps = SDReplications(port, cfg, n_replications=R, x0=_X0[name], seed=0)
     js = [JSDSolver(ref, jcfg, x0=_X0[name], seed=r) for r in range(R)]
@@ -218,7 +218,7 @@ def test_replicated_step_with_one_replication_is_sd_step():
     retry, bit for bit (one PDHG panel, the batched QP's CPU products are
     the unbatched ones)."""
     cfg, _ = _configs()
-    port = load_instance("lands", dtype=torch.float64)
+    port = load_instance("lands", dtype=torch.float64, device="cpu")
     one = SDSolver(port, cfg, x0=_X0["lands"], seed=0)
     reps = SDReplications(port, cfg, n_replications=1, x0=_X0["lands"],
                           seed=0)
@@ -357,7 +357,7 @@ def test_variance_reduced_map_matches_jax(monkeypatch, method, complement):
     uniform affine map, complement=) equals the JAX map on the same numpy
     uniform panels, on transship with positions of all three marginal
     types. Tolerance 1e-12 relative: two float64 ndtri implementations."""
-    port = load_instance("transship", dtype=torch.float64)
+    port = load_instance("transship", dtype=torch.float64, device="cpu")
     ref = jax_load_instance("transship", dtype=jnp.float64)
     kinds = np.array([0, 1, 2, 1, 0, 2, 1])
     vals = np.sort(np.random.default_rng(0).uniform(0, 30, (7, 3)), axis=1)
@@ -395,7 +395,7 @@ def test_stratified_and_antithetic_panels():
                                 "stratified")
     strata = torch.sort(torch.floor(u * 256).long(), dim=0).values
     assert torch.equal(strata, torch.arange(256)[:, None].expand(256, 5))
-    m = load_instance("storm", dtype=torch.float64).scenario_model
+    m = load_instance("storm", dtype=torch.float64, device="cpu").scenario_model
     v = scenario.sample_values(g, m, 256, "stratified").numpy()
     for k in range(5):
         pmf = np.diff(m.cdf[k].numpy(), prepend=0.0)
@@ -403,7 +403,7 @@ def test_stratified_and_antithetic_panels():
             if pmf[j] > 0:
                 assert abs(np.sum(np.abs(v[:, k] - val) < 1e-9)
                            - pmf[j] * 256) < 2.0
-    tm = load_instance("transship", dtype=torch.float64).scenario_model
+    tm = load_instance("transship", dtype=torch.float64, device="cpu").scenario_model
     a = scenario.sample_values(g, tm, 64, "antithetic").numpy()
     np.testing.assert_allclose(a[:32] + a[32:],
                                np.broadcast_to(2 * tm.mean.numpy(), (32, 7)),
@@ -417,7 +417,7 @@ def test_evaluate_ci_batch_means_match_jax(monkeypatch):
     applies): mean and half-width equal the JAX evaluator's to 1e-8
     relative (every recourse value certified to 1e-9 in float64)."""
     cfg, jcfg = _configs()
-    port = load_instance("lands", dtype=torch.float64)
+    port = load_instance("lands", dtype=torch.float64, device="cpu")
     ref = jax_load_instance("lands", dtype=jnp.float64)
     ps = SDSolver(port, cfg, x0=_X0["lands"], seed=0)
     js = JSDSolver(ref, jcfg, x0=_X0["lands"], seed=0)

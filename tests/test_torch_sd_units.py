@@ -38,7 +38,7 @@ f64 = torch.float64
 
 @pytest.fixture(scope="module")
 def lands():
-    return load_instance("lands", dtype=f64)
+    return load_instance("lands", dtype=f64, device="cpu")
 
 
 def _empty_pool(D, m, dtype=f64):
@@ -164,7 +164,7 @@ def test_crossover_matches_jax(name, tol, min_acc):
     acceptance pattern and sharpened duals as the JAX crossover
     (1e-8 relative: batched LU solves in float64). Lands' 1e-4 duals are
     interior enough that some roundings pass the acceptance test."""
-    port = load_instance(name, dtype=f64)
+    port = load_instance(name, dtype=f64, device="cpu")
     ref = jax_load_instance(name, dtype=jnp.float64)
     x = np.full(port.n1, 5.0 if name == "lands" else 0.0)
     H = numpy_panel(port, 12, x, seed=4)
@@ -262,7 +262,7 @@ def test_master_cut_row_discount_lb_blending(lands):
     total = 2, lb = 100 gives the row bound 0.5 + 50 = 50.5."""
     cfg = SDConfig(dtype="float64", max_scenarios=8, max_dual_vertices=8,
                    max_cuts=4)
-    espec = default_epigraph_spec(1, 0.5, 100.0, dtype=f64)
+    espec = default_epigraph_spec(1, 0.5, 100.0, dtype=f64, device="cpu")
     state = init_state(lands, espec, cfg, np.zeros(lands.n1))
     state = dataclasses.replace(
         state,

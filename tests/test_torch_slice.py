@@ -52,7 +52,7 @@ def _scenario_values(inst, n, seed):
 
 
 def _pair(name, **kw):
-    port = load_instance(name, dtype=torch.float64)
+    port = load_instance(name, dtype=torch.float64, device="cpu")
     ref = jax_load_instance(name, dtype=jnp.float64)
     x0 = _X0[name]
     ps = SDSolver(port, SDConfig(**_CAP, **kw), x0=x0, seed=0)
