@@ -2,29 +2,38 @@
 
     python3 chip_smoke.py                       # every phase, as a check
     python3 chip_smoke.py --iters 300 --rep-iters 100 \
-        --phases device,b1,b2,b3,main,replicated,cli,cli_rep
+        --phases device,b1,b2,b3,main,replicated,small,cli,cli_rep
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
-against its plain PyTorch version at the shapes the paths give it (both
-variants of the Halpern round, row-block and cluster, wherever the cluster
-takes the shape), and
-drives two paths with the kernels' launch counts reset just before and
+against its plain PyTorch version at the shapes the paths give it (every
+variant of both PDHG rounds, row-block, cluster and tile, wherever the
+variant takes the shape), and
+drives three paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
 settings, then the Monte-Carlo upper bound over 4096 scenarios; run twice,
 `main` and `main2`, whose seeded bounds must agree bitwise) and the
 replicated path (8 lockstep SD replications on ssn under the
 restart-to-average PDHG scheme, the compromise decision, its stratified
-Monte-Carlo bound). It then runs the lands CLI, single and replicated,
-against the known optimum 381.8533. Any failed phase exits non-zero. The
+Monte-Carlo bound), and the small path (lands, whose K fits L1 and stays
+on the row-block kernels: a single SD run and 3 replications under the
+average scheme). The main path also holds the tile kernel's float32
+arithmetic to its gate: the same 4096-row panels, at the same x over
+three seeds, through the row-block kernel (FP32 FMAs), through the tile
+kernel's 3xTF32 products and through its FP32 FMA products (a control:
+exact FP32 in the tile kernel's order); the total rounds within 5 % of the
+row-block kernel's and every mean within the half-width. The arithmetic
+the plan picks must pass. It then
+runs the lands CLI, single and replicated, against the known optimum
+381.8533. Any failed phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
 The phase `profile` (not run by default) breaks the main and the
-replicated path's time down by phase of the SD step and by kernel. The phase `sweep` (not run by
-default) times every variant the kernels
-admit at the shapes their plan functions decide between: the thresholds
-of ops/cuda/pdhg_kernel.py:_plan and ops/cuda/admm_kernel.py:_plan come
-from it.
+replicated path's time down by phase of the SD step and by kernel. The phase
+`sweep` (not run by default) times every variant the kernels admit at the
+shapes their plan functions decide between: the thresholds of
+ops/cuda/pdhg_kernel.py:_plan and ops/cuda/admm_kernel.py:_plan come from
+it.
 """
 
 from __future__ import annotations
@@ -210,41 +219,63 @@ def _pdhg_case(name, B, dtype, per_el_q=False, seed=0):
             L.contiguous(), kh, Yc.contiguous(), Lc.contiguous())
 
 
-# phase -> (wrapper in ops/cuda/pdhg_kernel.py, operands it takes of the
-# 13 that _pdhg_case builds: the average round has no step count/anchors)
-_PDHG_PHASES = {"b1": ("pdhg_halpern_round", 13),
-                "b2": ("pdhg_average_round", 10)}
-_PDHG_CASES = (("lands", 8, False), ("ssn", 2, False), ("ssn", 4096, False),
-               ("storm", 2, False), ("ssn", 2, True))
+# phase -> the scheme whose round it checks; scheme -> operands its
+# wrapper takes of the 13 that _pdhg_case builds (the average round has no
+# step count and no anchors)
+_PDHG_PHASES = {"b1": "halpern", "b2": "average"}
+_PDHG_ARGS = {"halpern": 13, "average": 10}
+# the paths' rungs (the SD panels of 2 and 16 rows, the MC ladder 4096,
+# 1024, 512, 256), storm, lands and per-element q (a ragged tile too)
+_PDHG_CASES = (("lands", 8, False), ("ssn", 2, False), ("ssn", 16, False),
+               ("ssn", 256, False), ("ssn", 512, False),
+               ("ssn", 1024, False), ("ssn", 4096, False),
+               ("storm", 2, False), ("storm", 1024, False),
+               ("ssn", 2, True), ("ssn", 100, True))
+# a variant's entry in the kernels line: the wrapper's counter and the
+# shape its time is reported at (the path's own: the SD panel of the main
+# path is 2 rows, of the replicated path 16, the MC panel 4096; the
+# row-block kernels keep lands on the small path)
+_PDHG_ENTRY = {
+    ("halpern", "rows"): ("pdhg_halpern_round", "lands", 8),
+    ("halpern", "cluster"): ("pdhg_halpern_cluster", "ssn", 2),
+    ("halpern", "tile"): ("pdhg_halpern_tile", "ssn", 4096),
+    ("average", "rows"): ("pdhg_average_round", "lands", 8),
+    ("average", "cluster"): ("pdhg_average_cluster", "ssn", 16),
+    ("average", "tile"): ("pdhg_average_tile", "ssn", 4096),
+}
 
 
-def _b1_variants(args):
-    """The Halpern round's variants to check at these operands: the plan's
-    first, then the other one wherever the cluster takes the shape."""
+def _variants(args, scheme):
+    """A round's variants to check at these operands: the plan's first,
+    then the row-block kernel and the cluster and tile kernels (every
+    arithmetic) wherever they take the shape."""
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     m, n = args[0].shape
     B = args[5].shape[0]
     it = args[0].element_size()
-    plan = pk._plan(B, m, n, it)
-    out = [plan]
-    rows = ("rows", pk._rows_per_block("pdhg_halpern_round", B,
-                                       (4 * n + 4 * m) * it))
-    shape = pk._cluster_shape(B, m, n, it)
-    for alt in (rows, ("cluster",) + shape if shape else None):
+    out = [pk._plan(B, m, n, it, scheme)]
+    rows = ("rows", pk._rows_per_block(
+        f"pdhg_{scheme}_round", B, pk._row_values(m, n, scheme) * it))
+    shape = pk._cluster_shape(B, m, n, it, scheme)
+    tiles = [pk._tile_shape(B, m, n, it, scheme, arith)
+             for arith in pk._TILE_ARITH[it]]
+    for alt in (rows, ("cluster",) + shape if shape else None,
+                *(("tile",) + t if t else None for t in tiles)):
         if alt is not None and alt not in out:
             out.append(alt)
     return out
 
 
 def phase_pdhg(results, phase):
-    """One PDHG round kernel against its plain version, f32 and f64, at
-    the shapes of the SD step (B = 2EB), the MC panel (B = 4096), storm,
-    lands and per-element q; for B1 each variant the shape admits, timed
-    in the same call."""
+    """One PDHG round against its plain version, f32 and f64, at the
+    shapes of the SD step (B = 2; 16 replicated), the MC panel (B = 4096),
+    storm, lands and per-element q (a ragged tile too): every variant the
+    shape admits, timed in the same call, two launches bitwise equal."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
-    name, n_args = _PDHG_PHASES[phase]
+    scheme = _PDHG_PHASES[phase]
+    name, n_args = f"pdhg_{scheme}_round", _PDHG_ARGS[scheme]
     kernel = getattr(pk, name)
     plain = getattr(pk, name + "_ref")
     n_inner = 80
@@ -257,54 +288,53 @@ def phase_pdhg(results, phase):
             ref = plain(*args, n_inner)
             torch.cuda.synchronize()
             plain_ms = time_ms(lambda: plain(*args, n_inner), reps)
-            bms, _ = pdhg_bound(args, n_inner, dname)
-            plans = _b1_variants(args) if phase == "b1" else [None]
-            times = {}
-            for plan in plans:
-                kw = {} if plan is None else {"plan": plan}
-                out = kernel(*args, n_inner, **kw)
+            bound = pdhg_bound(args, n_inner, dname)
+            variants = _variants(args, scheme)
+            took = {}       # ms by variant: "rows", "cluster", tile's arith
+            for plan in variants:
+                out = kernel(*args, n_inner, plan=plan)
                 torch.cuda.synchronize()
                 abs_err = max(float((o - r).abs().max())
                               for o, r in zip(out, ref))
                 ok, err = agree(out, ref, dname)
-                ms = device_ms(lambda: kernel(*args, n_inner, **kw), reps)
-                call = time_ms(lambda: kernel(*args, n_inner, **kw), reps)
-                times[plan] = (ms, call)
-                tag = "" if plan is None else f" {plan[0]}{plan[1:]}"
+                again = kernel(*args, n_inner, plan=plan)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, o) for a, o in zip(again, out))
+                ms = device_ms(lambda: kernel(*args, n_inner, plan=plan),
+                               reps)
+                call = time_ms(lambda: kernel(*args, n_inner, plan=plan),
+                               reps)
                 log(f"[{phase}] {inst} B={B} "
-                    f"q={'per-el' if per_el else 'shared'} {dname}{tag}: "
+                    f"q={'per-el' if per_el else 'shared'} {dname} "
+                    f"{plan[0]}{plan[1:]}: "
                     f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
                     f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                     f"call_ms={call:.4f} plain_ms={plain_ms:.4f} "
-                    f"bound_ms={bms:.6f} {'ok' if ok else 'FAIL'}")
-                if not ok:
+                    f"bound_ms={bound[0]:.6f} deterministic={same} "
+                    f"{'ok' if ok and same else 'FAIL'}")
+                if not (ok and same):
                     raise AssertionError(f"{name} {plan} disagrees with its "
                                          f"plain version on {inst} B={B} "
                                          f"{dname}")
-                key = name if plan is None or plan[0] == "rows" \
-                    else "pdhg_halpern_cluster"
+                key, at_inst, at_B = _PDHG_ENTRY[scheme, plan[0]]
                 worst[key] = max(worst.get(key, 0.0), abs_err)
-            if dname != "float32" or inst != "ssn" or per_el:
-                continue
-            rows = [v for p, v in times.items() if p and p[0] == "rows"]
-            clus = [v for p, v in times.items() if p and p[0] == "cluster"]
-            bound = pdhg_bound(args, n_inner, dname)
-            shape = f"ssn B={B} f32"
-            if phase == "b2" and B == 2:
-                results[name].update(ms=times[None][0],
-                                     call_ms=times[None][1],
-                                     plain_ms=plain_ms, shape=shape)
-                _set_bound(results[name], bound)
-            elif phase == "b1" and B == 2:
-                results["pdhg_halpern_cluster"].update(
-                    ms=clus[0][0], call_ms=clus[0][1], plain_ms=plain_ms,
-                    rowblock_ms=rows[0][0], shape=shape)
-                _set_bound(results["pdhg_halpern_cluster"], bound)
-                results[name]["ssn_b2_ms"] = rows[0][0]
-            elif phase == "b1" and B == 4096:
-                results[name].update(ms=rows[0][0], call_ms=rows[0][1],
-                                     plain_ms=plain_ms, shape=shape)
-                _set_bound(results[name], bound)
+                took[plan[2] if plan[0] == "tile" else plan[0]] = ms
+                if dname == "float32" and not per_el \
+                        and (inst, B) == (at_inst, at_B) \
+                        and plan == variants[0]:
+                    results[key].update(
+                        ms=ms, call_ms=call, plain_ms=plain_ms,
+                        plan=list(plan), shape=f"{inst} B={B} f32")
+                    _set_bound(results[key], bound)
+            key, at_inst, at_B = _PDHG_ENTRY[scheme, variants[0][0]]
+            if dname == "float32" and not per_el \
+                    and (inst, B) == (at_inst, at_B):
+                # the other variants' times at the shape the entry reports
+                results[key]["rowblock_ms"] = took["rows"]
+                if variants[0][0] == "tile":
+                    results[key]["arith_ms"] = {
+                        k: v for k, v in took.items()
+                        if k in pk._TILE_ARITH[4]}
     for key, v in worst.items():
         results[key]["max_abs_err"] = v
 
@@ -437,67 +467,94 @@ def phase_b3(results, plans=None):
     results["admm_round"]["max_abs_err"] = worst
 
 
-def phase_sweep():
-    """Every variant the kernels admit, timed at the shapes their plans
-    decide between (one call, one card): the Halpern round's row-block
-    kernel against its cluster kernel over cluster sizes and rows per
-    cluster, and B3 over cluster sizes."""
+def _sweep_round(scheme, inst, B, dtype):
+    """Every variant a round admits at one shape, timed and held against
+    the plain version; the plan's own choice is marked."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
+    name, n_args = f"pdhg_{scheme}_round", _PDHG_ARGS[scheme]
+    kernel = getattr(pk, name)
     n_inner = 80
-    for inst, B, dtype in (
-            ("ssn", 2, torch.float32), ("ssn", 2, torch.float64),
-            ("ssn", 3, torch.float32), ("ssn", 16, torch.float32),
-            ("ssn", 16, torch.float64), ("ssn", 64, torch.float32),
-            ("ssn", 64, torch.float64), ("ssn", 128, torch.float32),
-            ("ssn", 256, torch.float32), ("ssn", 256, torch.float64),
-            ("ssn", 1024, torch.float32), ("storm", 2, torch.float32),
-            ("storm", 16, torch.float32)):
-        args = _pdhg_case(inst, B, dtype)
-        m, n = args[0].shape
-        it = args[0].element_size()
-        dname = str(dtype).replace("torch.", "")
-        plans = [("rows", pk._rows_per_block("pdhg_halpern_round", B,
-                                             (4 * n + 4 * m) * it))]
-        for C in pk._CLUSTER_SIZES:
-            for R in pk._CLUSTER_ROWS:
-                if R <= max(B, 1) and pk._cluster_fits(C, R, m, n, it):
-                    plans.append(("cluster", C, R))
-        ref = pk.pdhg_halpern_round_ref(*args, n_inner)
-        reps = 3 if B >= 1024 else 10
-        for plan in plans:
-            occ = pk._clusters_per_wave(*plan[1:], m, n, it) \
-                if plan[0] == "cluster" else None
-            if occ == 0:
-                log(f"[sweep] b1 {inst} B={B} {dname} {plan}: the card "
-                    f"cannot schedule it (max_active_clusters=0)")
-                continue
-            out = pk.pdhg_halpern_round(*args, n_inner, plan=plan)
-            torch.cuda.synchronize()
-            ok, err = agree(out, ref, dname)
-            ms = device_ms(lambda: pk.pdhg_halpern_round(
-                *args, n_inner, plan=plan), reps)
-            log(f"[sweep] b1 {inst} B={B} {dname} {plan}: "
-                f"kernel_ms={ms:.4f} max_rel_err={err:.2e} "
-                f"max_active_clusters={occ} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"pdhg_halpern_round {plan} disagrees "
-                                     f"with its plain version on {inst} "
-                                     f"B={B} {dname}")
+    args = _pdhg_case(inst, B, dtype)[:n_args]
+    m, n = args[0].shape
+    it = args[0].element_size()
+    dname = str(dtype).replace("torch.", "")
+    plans = [("rows", pk._rows_per_block(
+        f"pdhg_{scheme}_round", B, pk._row_values(m, n, scheme) * it))]
+    if B <= 1024:       # past that a cluster per few rows takes seconds
+        plans += [("cluster", C, R) for C in pk._CLUSTER_SIZES
+                  for R in pk._CLUSTER_ROWS
+                  if R <= B and pk._cluster_fits(C, R, m, n, it, scheme)]
+    plans += [("tile", C, arith) for C in pk._CLUSTER_SIZES
+              for arith in pk._TILE_ARITH[it]
+              if pk._tile_fits(C, m, n, it, arith)]
+    chosen = pk._plan(B, m, n, it, scheme)
+    ref = getattr(pk, name + "_ref")(*args, n_inner)
+    reps = 3 if B >= 1024 else 10
+    for plan in plans:
+        if plan[0] == "cluster":
+            occ = pk._clusters_per_wave(*plan[1:], m, n, it, scheme)
+        elif plan[0] == "tile":
+            occ = pk._tile_clusters_per_wave(*plan[1:], m, n, it, scheme)
+        else:
+            occ = None
+        tag = f"[sweep] {scheme} {inst} B={B} {dname} {plan}"
+        if occ == 0:
+            log(f"{tag}: the card cannot schedule it "
+                f"(max_active_clusters=0)")
+            continue
+        out = kernel(*args, n_inner, plan=plan)
+        torch.cuda.synchronize()
+        ok, err = agree(out, ref, dname)
+        ms = device_ms(lambda: kernel(*args, n_inner, plan=plan), reps)
+        log(f"{tag}: kernel_ms={ms:.4f} max_rel_err={err:.2e} "
+            f"max_active_clusters={occ}"
+            f"{' <- plan' if plan == chosen else ''} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {plan} disagrees with its plain "
+                                 f"version on {inst} B={B} {dname}")
+
+
+def phase_sweep():
+    """Every variant the kernels admit, timed at the shapes their plans
+    decide between (one call, one card): both PDHG rounds' row-block
+    kernels against their cluster kernels (cluster sizes, rows per
+    cluster) and tile kernels (cluster sizes, arithmetic), and B3 over
+    cluster sizes."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+
+    f32, f64 = torch.float32, torch.float64
+    for scheme, inst, sizes, dtypes in (
+            ("halpern", "ssn", (2, 16, 64, 256, 1024, 4096), (f32, f64)),
+            ("average", "ssn", (16, 64, 256, 1024, 4096), (f32, f64)),
+            ("halpern", "storm", (2, 16, 256, 1024), (f32,)),
+            ("halpern", "storm", (1024,), (f64,)),
+            ("average", "storm", (16, 1024), (f32,))):
+        for dtype in dtypes:
+            for B in sizes:
+                _sweep_round(scheme, inst, B, dtype)
+    n_inner = 80
     phase_b3({"admm_round": {}}, plans="all")
     # each planned kernel's fixed cost (launch, loading its matrices) and
     # its cost per step, from device times at 1 step and at a full round
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
-    for inst, B, dtype in (("ssn", 2, torch.float32),
-                           ("ssn", 2, torch.float64)):
-        args = _pdhg_case(inst, B, dtype)
-        plan = pk._plan(B, *args[0].shape, args[0].element_size())
-        t1, t80 = (device_ms(lambda: pk.pdhg_halpern_round(
-            *args, k, plan=plan), 20) for k in (1, 80))
-        log(f"[sweep] b1 {inst} B={B} {dtype} {plan}: 1 step {t1:.4f} ms, "
-            f"80 steps {t80:.4f} ms: {1e3 * (t80 - t1) / 79:.2f} us per "
-            f"step, {1e3 * (t1 - (t80 - t1) / 79):.1f} us fixed")
+    for scheme, inst, B, dtype in (("halpern", "ssn", 2, f32),
+                                   ("halpern", "ssn", 2, f64),
+                                   ("average", "ssn", 16, f32),
+                                   ("halpern", "ssn", 4096, f32),
+                                   ("halpern", "ssn", 4096, f64)):
+        n_args = _PDHG_ARGS[scheme]
+        kernel = getattr(pk, f"pdhg_{scheme}_round")
+        args = _pdhg_case(inst, B, dtype)[:n_args]
+        plan = pk._plan(B, *args[0].shape, args[0].element_size(), scheme)
+        t1, t80 = (device_ms(lambda: kernel(*args, k, plan=plan), 5)
+                   for k in (1, n_inner))
+        log(f"[sweep] {scheme} {inst} B={B} {dtype} {plan}: 1 step {t1:.4f} "
+            f"ms, 80 steps {t80:.4f} ms: {1e3 * (t80 - t1) / 79:.2f} us "
+            f"per step, {1e3 * (t1 - (t80 - t1) / 79):.1f} us fixed")
     for name, ops64, qp in _b3_cases():
         for dtype in (torch.float32, torch.float64):
             ops = [t.to(dtype).contiguous() for t in ops64]
@@ -510,7 +567,7 @@ def phase_sweep():
                 f"per step, {1e3 * (t1 - (t25 - t1) / 24):.1f} us fixed")
 
 
-def phase_main(results, iters):
+def phase_main(results, iters, gate=False):
     import numpy as np
     import torch
     from sqlp_tpu_torch.models.instance import load_instance
@@ -532,6 +589,7 @@ def phase_main(results, iters):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t1
     counts = _counts()
+    rungs = _by_rung()
     lb = solver.lower_estimate
     log(f"[main] ssn {iters} iters in {sd_s:.2f}s ({iters / sd_s:.2f} it/s)"
         f" lb_est={lb:.6f} mc_ub={ub:.6f} +- {hw:.4f} (N={n}, "
@@ -542,14 +600,17 @@ def phase_main(results, iters):
             "qp_iters", "qp_err", "qp_converged", "n_duals", "n_cuts_live",
             "crossover_accepted")))
     log(f"[main] launches: {json.dumps(counts)}")
-    for k in ("pdhg_halpern_round", "pdhg_halpern_cluster", "admm_round"):
-        results[k]["launches"] = counts[k]
+    log(f"[main] launches by rung: {rungs}")
     if not all(math.isfinite(v) for v in (lb, ub, hw)):
         raise AssertionError(f"non-finite bounds lb={lb} ub={ub} hw={hw}")
-    missing = [k for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
-                           "admm_round") if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    _record_launches(results, counts, ("pdhg_halpern_cluster",
+                                       "pdhg_halpern_tile", "admm_round"))
+    if counts["pdhg_halpern_round"] != 0:
+        raise AssertionError(f"ssn main path left a rung on the row-block "
+                             f"kernel: {rungs}")
+    if gate:
+        _f32_gate("[main]", lambda seed: solver.evaluate_ci(
+            min_samples=4096, max_samples=4096, seed=seed))
     return lb, ub
 
 
@@ -644,22 +705,135 @@ def phase_profile(path, iters):
             f"{e.count} launches")
 
 
+_PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
+                  "pdhg_halpern_cluster": "cluster_launches",
+                  "pdhg_halpern_tile": "tile_launches",
+                  "pdhg_average_round": "average_launches",
+                  "pdhg_average_cluster": "average_cluster_launches",
+                  "pdhg_average_tile": "average_tile_launches"}
+
+
 def _reset_counts():
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
-    pk.launches = 0
-    pk.cluster_launches = 0
-    pk.average_launches = 0
+    for attr in _PDHG_COUNTERS.values():
+        setattr(pk, attr, 0)
+    pk.launches_by_shape.clear()
     ak.launches = 0
 
 
 def _counts():
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
-    return {"pdhg_halpern_round": pk.launches,
-            "pdhg_halpern_cluster": pk.cluster_launches,
-            "pdhg_average_round": pk.average_launches,
-            "admm_round": ak.launches}
+    out = {k: getattr(pk, attr) for k, attr in _PDHG_COUNTERS.items()}
+    out["admm_round"] = ak.launches
+    return out
+
+
+def _by_rung():
+    """The PDHG launches since the last reset as 'kernel B=.. f32|f64: n',
+    largest panels first: which rung of the path took which variant."""
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+    names = {attr: k for k, attr in _PDHG_COUNTERS.items()}
+    rows = sorted(pk.launches_by_shape.items(),
+                  key=lambda kv: (kv[0][0], kv[0][2], -kv[0][1]))
+    return "; ".join(f"{names[c]} B={B} f{8 * it}: {v}"
+                     for (c, B, it), v in rows)
+
+
+def _record_launches(results, counts, keys):
+    for k in keys:
+        results[k]["launches"] = counts[k]
+    missing = [k for k in keys if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the path never launched {missing}: {counts}")
+
+
+GATE_SEEDS = (1, 2, 3)
+
+
+def _f32_tiles_as(pk, real, kind):
+    """The plan function ``real`` with every float32 tile plan replaced by
+    the row-block kernel's (kind "rows") or by the tile plan of that
+    arithmetic: the partners of the gate over a whole solve. The float64
+    rung keeps its plan, so the runs differ in the float32 products
+    alone."""
+
+    def plan(B, m, n, itemsize, scheme="halpern"):
+        out = real(B, m, n, itemsize, scheme)
+        if out[0] != "tile" or itemsize != 4:
+            return out
+        if kind == "rows":
+            return ("rows", pk._rows_per_block(
+                f"pdhg_{scheme}_round", B,
+                pk._row_values(m, n, scheme) * itemsize))
+        return ("tile",) + pk._tile_shape(B, m, n, itemsize, scheme, kind)
+    return plan
+
+
+def _f32_gate(tag, evaluate):
+    """The gate of the tile kernel's float32 arithmetic. ``evaluate(seed)``
+    solves one 4096-row panel at the path's x and returns (mean,
+    half-width, n). Every seed's panel goes through the row-block kernel
+    (plain FP32 FMAs), through the tile kernel's 3xTF32 products and
+    through its FP32 FMA products (the control: the tile kernel's tiles,
+    exchange and summation order, exact FP32), wherever the plan says tile
+    in float32. An arithmetic passes when its total rounds over the seeds
+    are within 5 % of the row-block kernel's and every seed's mean is
+    within the larger half-width of the row-block kernel's. The one the
+    plan picks must pass. Single panels differ by up to 20 % between any
+    two of the kernels (a few stragglers' restarts decide the tail), so
+    the seeds' rounds are printed one by one and judged in total."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+
+    saved = dict(pk.launches_by_shape), _counts()
+    real = pk._plan
+    kinds = ("rows", *pk._TILE_ARITH[4])
+    rounds = {k: 0 for k in kinds}
+    means_ok = {k: True for k in kinds}
+    try:
+        for seed in GATE_SEEDS:
+            ref = None
+            for kind in kinds:
+                pk._plan = _f32_tiles_as(pk, real, kind)
+                _reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ub, hw, _ = evaluate(seed)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                n = sum(_counts()[k] for k in _PDHG_COUNTERS)
+                rounds[kind] += n
+                if ref is None:
+                    ref = (ub, hw)
+                elif abs(ub - ref[0]) > max(hw, ref[1]):
+                    means_ok[kind] = False
+                log(f"{tag} gate seed {seed} {kind}: {n} rounds, mc_ub="
+                    f"{ub:.6f} +- {hw:.4f}, {sec:.2f}s; {_by_rung()}")
+    finally:
+        pk._plan = real
+    # the path's own counts stand as they were read before the gate
+    _reset_counts()
+    pk.launches_by_shape.update(saved[0])
+    for k, attr in _PDHG_COUNTERS.items():
+        setattr(pk, attr, saved[1][k])
+
+    def apart(kind):
+        return abs(rounds[kind] - rounds["rows"]) / max(rounds["rows"], 1)
+    limit = 0.05
+    verdict = {}
+    for kind in kinds[1:]:
+        verdict[kind] = apart(kind) <= limit and means_ok[kind]
+        log(f"{tag} f32 gate, {kind}: {rounds[kind]} rounds over seeds "
+            f"{GATE_SEEDS} against the row-block kernel's {rounds['rows']}: "
+            f"{100 * apart(kind):.2f} % (limit {100 * limit:.0f} %), means "
+            f"within the half-width: {means_ok[kind]}: "
+            f"{'pass' if verdict[kind] else 'FAIL'}")
+    log(f"{tag} f32 gate: the plan picks {pk._TILE_F32}")
+    if not verdict[pk._TILE_F32]:
+        raise AssertionError(f"the tile kernel's {pk._TILE_F32} products "
+                             f"fail their gate against the row-block kernel")
 
 
 def phase_replicated(results, iters):
@@ -695,6 +869,7 @@ def phase_replicated(results, iters):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t2
     counts = _counts()
+    rungs = _by_rung()
     lbs = reps.lower_estimates
     log(f"[replicated] ssn R={R} x {iters} iters in {sd_s:.2f}s "
         f"({iters / sd_s:.3f} it/s, {R * iters / sd_s:.2f} "
@@ -711,18 +886,63 @@ def phase_replicated(results, iters):
             "pdhg_rounds", "pdhg_iters", "pdhg_err_max", "qp_iters",
             "qp_err", "n_duals", "n_cuts_live", "crossover_accepted")))
     log(f"[replicated] launches: {json.dumps(counts)}")
-    results["pdhg_average_round"]["launches"] = counts["pdhg_average_round"]
+    log(f"[replicated] launches by rung: {rungs}")
     vals = [*lbs, *x_comp, ub, hw]
     if not all(math.isfinite(float(v)) for v in vals):
         raise AssertionError(f"non-finite results lb={lbs} x={x_comp} "
                              f"ub={ub} hw={hw}")
-    if counts["pdhg_average_round"] <= 0 or counts["admm_round"] <= 0:
-        raise AssertionError(f"replicated path never launched B2 or B3: "
-                             f"{counts}")
-    if counts["pdhg_halpern_round"] != 0 \
-            or counts["pdhg_halpern_cluster"] != 0:
+    _record_launches(results, counts, ("pdhg_average_cluster",
+                                       "pdhg_average_tile"))
+    if counts["admm_round"] <= 0:
+        raise AssertionError(f"replicated path never launched B3: {counts}")
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+    panel = {c for (c, B, it) in pk.launches_by_shape if (B, it) == (2 * R, 4)}
+    if panel != {"average_cluster_launches"}:
+        raise AssertionError(f"the {2 * R}-row SD panel did not go through "
+                             f"B2's cluster variant alone: {rungs}")
+    if any(counts[k] for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
+                               "pdhg_halpern_tile", "pdhg_average_round")):
         raise AssertionError(f"replicated path launched a Halpern kernel "
-                             f"under scheme='average': {counts}")
+                             f"under scheme='average', or left a rung on "
+                             f"the row-block kernel: {rungs}")
+
+
+def phase_small(results):
+    """The small path: lands, whose K (under 1 KB) stays in L1 and on the
+    row-block kernels. A single SD run under the Halpern scheme with its
+    MC bound, then 3 lockstep replications under the average scheme with
+    theirs; each driven with the counts reset before and read after."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.config import PDHGConfig, SDConfig
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd.driver import SDReplications, SDSolver
+
+    dev = torch.device("cuda")
+    inst = load_instance("lands", dtype=torch.float32, device=dev)
+    x0 = np.full(inst.n1, 5.0)
+    for scheme, key in (("halpern", "pdhg_halpern_round"),
+                        ("average", "pdhg_average_round")):
+        cfg = SDConfig(dtype="float32", pdhg=PDHGConfig(scheme=scheme))
+        _reset_counts()
+        t0 = time.perf_counter()
+        if scheme == "halpern":
+            solver = SDSolver(inst, cfg, x0=x0, seed=0)
+        else:
+            solver = SDReplications(inst, cfg, n_replications=3, x0=x0,
+                                    seed=0)
+        solver.run(40)
+        x = None if scheme == "halpern" else solver.x_incumbents[0]
+        ub, hw, n = solver.evaluate_ci(x=x, min_samples=1024,
+                                       max_samples=1024, seed=1)
+        torch.cuda.synchronize()
+        counts = _counts()
+        log(f"[small] lands scheme={scheme}: 40 iterations + a {n}-row MC "
+            f"panel in {time.perf_counter() - t0:.2f}s, mc_ub={ub:.4f} +- "
+            f"{hw:.4f}; launches by rung: {_by_rung()}")
+        if not (math.isfinite(ub) and math.isfinite(hw)):
+            raise AssertionError(f"non-finite lands bound {ub} +- {hw}")
+        _record_launches(results, counts, (key,))
 
 
 def phase_cli():
@@ -772,8 +992,8 @@ def main() -> int:
     ap.add_argument("--rep-iters", type=int, default=100,
                     help="SD iterations of the replicated path")
     ap.add_argument("--phases",
-                    default="device,b1,b2,b3,main,main2,replicated,cli,"
-                    "cli_rep")
+                    default="device,b1,b2,b3,main,main2,replicated,small,"
+                    "cli,cli_rep")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -786,24 +1006,18 @@ def main() -> int:
     configure_torch()
 
     src = "sqlp_tpu_torch/csrc/"
-    results = {
-        "pdhg_halpern_round": {
-            "name": "pdhg_halpern_round", "route": "cuda",
-            "source": src + "pdhg_halpern_round.cu",
-            "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:236"},
-        "pdhg_halpern_cluster": {
-            "name": "pdhg_halpern_cluster", "route": "cuda",
-            "source": src + "pdhg_halpern_cluster.cu",
-            "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:236"},
-        "pdhg_average_round": {
-            "name": "pdhg_average_round", "route": "cuda",
-            "source": src + "pdhg_average_round.cu",
-            "replaces": "sqlp_tpu/ops/pallas/pdhg_kernel.py:297"},
-        "admm_round": {
-            "name": "admm_round", "route": "cuda",
-            "source": src + "admm_round.cu",
-            "replaces": "sqlp_tpu/ops/pallas/admm_kernel.py:95"},
-    }
+    halpern = "sqlp_tpu/ops/pallas/pdhg_kernel.py:236"
+    average = "sqlp_tpu/ops/pallas/pdhg_kernel.py:297"
+    results = {name: {"name": name, "route": "cuda",
+                      "source": src + name + ".cu", "replaces": site}
+               for name, site in (
+                   ("pdhg_halpern_round", halpern),
+                   ("pdhg_halpern_cluster", halpern),
+                   ("pdhg_halpern_tile", halpern),
+                   ("pdhg_average_round", average),
+                   ("pdhg_average_cluster", average),
+                   ("pdhg_average_tile", average),
+                   ("admm_round", "sqlp_tpu/ops/pallas/admm_kernel.py:95"))}
     t0 = time.perf_counter()
     first = None
     for ph in phases:
@@ -820,7 +1034,7 @@ def main() -> int:
             phase_profile("main", 100)
             phase_profile("replicated", 20)
         elif ph == "main":
-            first = phase_main(results, args.iters)
+            first = phase_main(results, args.iters, gate=True)
         elif ph == "main2":
             # the same seeded run again: the bounds must repeat bitwise
             again = phase_main(results, args.iters)
@@ -831,6 +1045,8 @@ def main() -> int:
                                      f"{first} then {again}")
         elif ph == "replicated":
             phase_replicated(results, args.rep_iters)
+        elif ph == "small":
+            phase_small(results)
         elif ph == "cli":
             phase_cli()
         elif ph == "cli_rep":

@@ -1,7 +1,8 @@
-// Device code shared by the PDHG round kernels (Hopper, sm_90a):
-// pdhg_halpern_round.cu and pdhg_average_round.cu.
+// Device code shared by the PDHG round kernels (Hopper, sm_90a). clip and
+// RoundArgs serve every variant; the two products below are the row-block
+// kernels' (pdhg_halpern_round.cu and pdhg_average_round.cu).
 //
-// Both kernels keep a block's batch rows in shared memory, ROWS rows at a
+// Both row-block kernels keep a block's batch rows in shared memory, ROWS rows at a
 // fixed stride, and read K from L2. The two products of a PDHG step are
 // written once here so that both schemes reduce in the same order:
 //
@@ -66,5 +67,18 @@ __device__ __forceinline__ void row_products(const T* __restrict__ Ki,
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) acc[r] = warp_sum(acc[r]);
 }
+
+// the operands of one round, as the C interfaces of the cluster and tile
+// kernels pass them to their launchers. Halpern: aux = (kh, Yanc, Lanc),
+// out = (Ycarry, Lcarry, Ycand, Lcand); average: aux null, out = (Y, L,
+// Yavg, Lavg)
+struct RoundArgs {
+  const void *K, *q;
+  int q_per_row;
+  const void *lb, *ub, *is_eq, *ht, *tau, *sig, *Y, *L, *kh, *Yanc, *Lanc;
+  void *Yout, *Lout, *Yout2, *Lout2;
+  int B, m, n, n_inner;
+  void* stream;
+};
 
 }  // namespace pdhg

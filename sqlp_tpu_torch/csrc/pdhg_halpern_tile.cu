@@ -1,0 +1,81 @@
+// Reflected-Halpern PDHG round for large batches: tiles of batch rows on
+// the tensor cores, K resident in a thread-block cluster's shared memory
+// (Hopper, sm_90a).
+//
+// Replaces: sqlp_tpu/ops/pallas/pdhg_kernel.py, pdhg_round_pallas_halpern
+// (body _kernel_halpern) in its large-panel regime (the Monte-Carlo
+// panel's 4096- and 1024-row rungs); pdhg_halpern_cluster.cu keeps the
+// small panels and pdhg_halpern_round.cu what neither takes. It computes
+// exactly what ops/cuda/pdhg_kernel.py:pdhg_halpern_round_ref computes.
+//
+// What bounds the row-block kernel there: a block carries 4 batch rows and
+// reads K twice per step from L2, so the round sits at the L2's bandwidth
+// (about 79 GB per 80-step round at ssn B = 4096), and its products are
+// scalar FMAs. The TPU kernel kept K in VMEM and ran the products on the
+// matrix unit as three bf16 passes; pdhg_tile.cuh keeps K's column slices
+// in a cluster's shared memory, carries 16 rows per tile and runs
+// the products as mma.sync instructions (3xTF32 in float32, FP64 in
+// float64), and says how. This file instantiates it for the Halpern
+// scheme.
+
+#include "pdhg_tile.cuh"
+
+namespace {
+
+using pdhg_tile::Args;
+
+template <typename T>
+int run(int C, int arith, int nclusters, const void* K, const void* q,
+        int q_per_row, const void* lb, const void* ub, const void* is_eq,
+        const void* ht, const void* tau, const void* sig, const void* Y,
+        const void* L, const void* kh, const void* Yanc, const void* Lanc,
+        void* Yout, void* Lout, void* Ycand, void* Lcand, int B, int m,
+        int n, int n_inner, void* stream) {
+  const Args a = {K,   q,  q_per_row, lb,   ub,   is_eq, ht,   tau,
+                  sig, Y,  L,         kh,   Yanc, Lanc,  Yout, Lout,
+                  Ycand, Lcand, B,    m,    n,    n_inner, stream};
+  return pdhg_tile::launch<T, false>(C, arith, nclusters, a, nullptr);
+}
+
+}  // namespace
+
+extern "C" {
+
+// one round on nclusters persistent clusters of C CTAs, the products by
+// arith (pdhg_tile.cuh: 0 matrix instructions, 1 FP32 FMAs); returns
+// cudaError_t
+int pdhg_halpern_tile_f32(int C, int arith, int nclusters, const void* K,
+                          const void* q, int q_per_row, const void* lb,
+                          const void* ub, const void* is_eq, const void* ht,
+                          const void* tau, const void* sig, const void* Y,
+                          const void* L, const void* kh, const void* Yanc,
+                          const void* Lanc, void* Yout, void* Lout,
+                          void* Ycand, void* Lcand, int B, int m, int n,
+                          int n_inner, void* stream) {
+  return run<float>(C, arith, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
+                    tau, sig, Y, L, kh, Yanc, Lanc, Yout, Lout, Ycand, Lcand,
+                    B, m, n, n_inner, stream);
+}
+
+int pdhg_halpern_tile_f64(int C, int arith, int nclusters, const void* K,
+                          const void* q, int q_per_row, const void* lb,
+                          const void* ub, const void* is_eq, const void* ht,
+                          const void* tau, const void* sig, const void* Y,
+                          const void* L, const void* kh, const void* Yanc,
+                          const void* Lanc, void* Yout, void* Lout,
+                          void* Ycand, void* Lcand, int B, int m, int n,
+                          int n_inner, void* stream) {
+  return run<double>(C, arith, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
+                     tau, sig, Y, L, kh, Yanc, Lanc, Yout, Lout, Ycand,
+                     Lcand, B, m, n, n_inner, stream);
+}
+
+// cudaOccupancyMaxActiveClusters for that launch, into *out; nothing is
+// launched
+int pdhg_halpern_tile_occupancy(int f64, int C, int arith, int m, int n,
+                                int* out) {
+  return pdhg_tile::occupancy<false>(f64, C, arith, m, n, out);
+}
+
+
+}  // extern "C"

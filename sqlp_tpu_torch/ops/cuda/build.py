@@ -24,8 +24,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("pdhg_halpern_round.cu", "pdhg_halpern_cluster.cu",
-            "pdhg_average_round.cu", "admm_round.cu")
-_HEADERS = ("pdhg_common.cuh",)
+            "pdhg_halpern_tile.cu", "pdhg_average_round.cu",
+            "pdhg_average_cluster.cu", "pdhg_average_tile.cu",
+            "admm_round.cu")
+_HEADERS = ("pdhg_common.cuh", "pdhg_cluster.cuh", "pdhg_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -37,13 +39,22 @@ build_seconds = 0.0     # wall time of the nvcc run in this process (0: cached)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+# a round's operands after the plan's leading integers: K, q, q_per_row,
+# then 15 (Halpern) or 12 (average) pointers, B, m, n, n_inner, the stream
+_HALPERN = [_P, _P, _I] + [_P] * 15 + [_I] * 4 + [_P]
+_AVERAGE = [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P]
 _SIGNATURES = {
-    "pdhg_halpern_round": [_I] + [_P, _P, _I] + [_P] * 15 + [_I] * 4 + [_P],
-    "pdhg_halpern_cluster": [_I, _I] + [_P, _P, _I] + [_P] * 15 + [_I] * 4
-    + [_P],
-    "pdhg_average_round": [_I] + [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P],
+    "pdhg_halpern_round": [_I] + _HALPERN,
+    "pdhg_halpern_cluster": [_I] * 2 + _HALPERN,
+    "pdhg_halpern_tile": [_I] * 3 + _HALPERN,
+    "pdhg_average_round": [_I] + _AVERAGE,
+    "pdhg_average_cluster": [_I] * 2 + _AVERAGE,
+    "pdhg_average_tile": [_I] * 3 + _AVERAGE,
     "admm_round": [_I] + [_P] * 13 + [_I] * 4 + [_D, _D, _P],
 }
+# cudaOccupancyMaxActiveClusters queries: integers, then the int* result
+_OCCUPANCY = {"pdhg_halpern_cluster": 6, "pdhg_average_cluster": 6,
+              "pdhg_halpern_tile": 5, "pdhg_average_tile": 5}
 
 
 def _nvcc() -> str:
@@ -124,8 +135,10 @@ def load() -> ctypes.CDLL:
                     fn = getattr(lib, f"{stem}_{suffix}")
                     fn.argtypes = args
                     fn.restype = ctypes.c_int
-            lib.pdhg_halpern_cluster_occupancy.argtypes = [_I] * 6 + [_P]
-            lib.pdhg_halpern_cluster_occupancy.restype = ctypes.c_int
+            for stem, n_ints in _OCCUPANCY.items():
+                fn = getattr(lib, f"{stem}_occupancy")
+                fn.argtypes = [_I] * n_ints + [_P]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 

@@ -4,17 +4,30 @@ Two rounds, one per restart scheme of ``solve_batch``:
 
 - :func:`pdhg_halpern_round` ports
   ``sqlp_tpu/ops/pallas/pdhg_kernel.py:pdhg_round_pallas_halpern`` (body
-  ``_kernel_halpern``, :150-262) in two variants that compute the same
-  function: the row-block kernel ``sqlp_tpu_torch/csrc/pdhg_halpern_round.cu``
-  (large panels; K read from L2) and the cluster kernel
-  ``sqlp_tpu_torch/csrc/pdhg_halpern_cluster.cu`` (small panels; K resident
-  in a thread-block cluster's shared memory). :func:`_plan` picks one from
-  the shapes and dtype alone. Plain version :func:`pdhg_halpern_round_ref`
-  (the loop of ``sqlp_tpu/ops/pdhg.py:305-320``).
+  ``_kernel_halpern``, :150-262); plain version
+  :func:`pdhg_halpern_round_ref` (the loop of
+  ``sqlp_tpu/ops/pdhg.py:305-320``).
 - :func:`pdhg_average_round` ports ``pdhg_round_pallas`` (body ``_kernel``,
-  :106-147, 265-330); source ``sqlp_tpu_torch/csrc/pdhg_average_round.cu``;
-  plain version :func:`pdhg_average_round_ref` (the loop of
-  ``sqlp_tpu/ops/pdhg.py:330-340``).
+  :106-147, 265-330); plain version :func:`pdhg_average_round_ref` (the
+  loop of ``sqlp_tpu/ops/pdhg.py:330-340``).
+
+Each has three kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
+the same function, and :func:`_plan` picks one from the shapes, the dtype
+and the card's cluster occupancy:
+
+- ``("cluster", C, R)``: ``pdhg_{halpern,average}_cluster.cu`` (both from
+  ``pdhg_cluster.cuh``), small panels; K resident in the shared memory of
+  a cluster of C CTAs, R batch rows per cluster, scalar FMAs;
+- ``("tile", C, arith)``: ``pdhg_{halpern,average}_tile.cu`` (both from
+  ``pdhg_tile.cuh``), large panels; K resident in persistent clusters of C
+  CTAs that walk tiles of 16 rows. ``arith`` names how the products are
+  computed: ``"mma"`` in float64 (FP64 matrix instructions), in float32
+  ``"tf32x3"`` (3xTF32 matrix instructions; ``_TILE_F32``, the one the
+  plan picks) or ``"fma"`` (FP32 FMAs on the same tiles at twice the time:
+  the exact-FP32 partner of chip_smoke.py's gate);
+- ``("rows", ROWS)``: ``pdhg_{halpern,average}_round.cu``, the row-block
+  kernels (K read from L2) for what neither takes: a K small enough for
+  L1, or a K whose slices fit no cluster.
 
 Each source's header says what bounds it on the card and how the design
 answers that. A wrapper launches its kernel for CUDA tensors and runs the
@@ -25,6 +38,8 @@ kernels mask their ragged last block themselves.
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -34,101 +49,216 @@ from sqlp_tpu_torch.ops.cuda import build
 
 # launches of each CUDA kernel in this process (the plain versions do not
 # count); chip_smoke.py resets them before driving a path
-launches = 0            # pdhg_halpern_round, row-block variant
-cluster_launches = 0    # pdhg_halpern_round, cluster variant
-average_launches = 0    # pdhg_average_round
+launches = 0                    # pdhg_halpern_round, row-block variant
+cluster_launches = 0            # pdhg_halpern_round, cluster variant
+tile_launches = 0               # pdhg_halpern_round, tile variant
+average_launches = 0            # pdhg_average_round, row-block variant
+average_cluster_launches = 0    # pdhg_average_round, cluster variant
+average_tile_launches = 0       # pdhg_average_round, tile variant
+# the same launches by (counter, B, itemsize): which rung of a path went
+# through which variant
+launches_by_shape = collections.Counter()
 
 _SMEM_BUDGET = 200 * 1024
 _SMEM_MAX = 227 * 1024  # dynamic shared memory one block may use (sm_90)
-_SMS = 132
 
-# The cluster variant (csrc/pdhg_halpern_cluster.cu), set from the chip
-# measurements in PERF.md (chip_smoke.py --phases sweep). It pays
-# once per launch to load K into the clusters' shared memory and once per
-# step for a cluster barrier, and wins where the row-block kernel is bound
-# by one SM's L2 bandwidth: a K too large for L1 and too few rows to fill
-# the card. Past about three waves of clusters the row-block kernel's
-# reuse of each K read across a block's rows wins again.
+# The cluster variants (csrc/pdhg_cluster.cuh) and the tile variants
+# (csrc/pdhg_tile.cuh), set from the chip measurements in PERF.md
+# (chip_smoke.py --phases sweep). Both keep K in the shared memory of
+# thread-block clusters, so they need a K too large for L1 to win
+# anything; the cluster variants pay one cluster barrier per step and run
+# scalar FMAs for R rows at a time, the tile variants two barriers per
+# step and matrix instructions for 16 rows at a time. Measured on ssn: a
+# round of the cluster kernel takes 0.35 ms at R = 1, 0.33-0.48 at R = 2
+# and 0.82 at R = 4, one pass of the tile kernel 0.61-0.85 ms whatever the
+# rows in it, so the cluster kernel keeps the panels that one wave of
+# clusters of at most 2 rows holds. Where no tile shape fits (storm in
+# float32) it keeps them up to 3 waves against the row-block kernel, as
+# measured before the tile kernel existed.
 _CLUSTER_MIN_K_BYTES = 128 * 1024
 _CLUSTER_SIZES = (4, 8, 16)         # CTAs per cluster; 16 is non-portable
 _CLUSTER_ROWS = (1, 2, 4, 8)        # batch rows one cluster carries
-_CLUSTER_MAX_WAVES = 3
+_CLUSTER_MAX_WAVES = 3              # against the row-block kernel
+_CLUSTER_MAX_ROWS_VS_TILE = 2       # against the tile kernel, in one wave
 _CLUSTER_WARPS = 16
 _CLUSTER_REGS = 108                 # 32-bit registers of the lane arrays
+_TILE_ROWS = 16                     # batch rows of a tile
+# a tile plan's arithmetic -> the kernels' code for it, by itemsize
+_TILE_ARITH = {4: {"tf32x3": 0, "fma": 1}, 8: {"mma": 0}}
+_TILE_F32 = "tf32x3"                # the float32 arithmetic the plan picks
+_SCHEMES = ("halpern", "average")
+
+
+@functools.lru_cache(maxsize=1)
+def _sm_count() -> int:
+    """Streaming multiprocessors of the current card."""
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
+def _row_values(m: int, n: int, scheme: str) -> int:
+    """Values a batch row keeps in a row-block kernel's shared memory."""
+    return 4 * n + 4 * m if scheme == "halpern" else 3 * n + 3 * m
 
 
 def _cluster_mi(m: int) -> int:
-    """Rows of K per lane (i = lane + 32 k, k < MI) the cluster kernel is
-    instantiated for; 0 where m is too large for it."""
+    """Rows of K per lane (i = lane + 32 k, k < MI) the cluster kernels
+    are instantiated for; 0 where m is too large for them."""
     return 6 if m <= 192 else (18 if m <= 576 else 0)
 
 
 def _cluster_smem(C: int, R: int, m: int, n: int, itemsize: int,
-                  q_rows: int) -> int:
-    """Shared memory of one CTA of the cluster kernel, in bytes (mirrors
-    csrc/pdhg_halpern_cluster.cu:cluster_smem_elems)."""
+                  q_rows: int, scheme: str = "halpern") -> int:
+    """Shared memory of one CTA of a cluster kernel, in bytes (mirrors
+    csrc/pdhg_cluster.cuh:cluster_smem_elems): a row keeps 3 [nc] and 4 [m]
+    vectors under Halpern, 2 and 3 under the average scheme."""
+    ny, nl = (3, 4) if scheme == "halpern" else (2, 3)
     nc = -(-n // C)
-    return (nc * m + (2 + q_rows + 3 * R) * nc
-            + (4 + _CLUSTER_WARPS + 2) * R * m) * itemsize
+    return (nc * m + (2 + q_rows + ny * R) * nc
+            + (nl + _CLUSTER_WARPS + 2) * R * m) * itemsize
 
 
-def _cluster_fits(C: int, R: int, m: int, n: int, itemsize: int) -> bool:
-    """The cluster kernel takes (C, R) at these shapes: its lane arrays fit
-    the register budget and a CTA's slice and vectors (per-row q assumed)
-    fit its shared memory."""
+def _cluster_fits(C: int, R: int, m: int, n: int, itemsize: int,
+                  scheme: str = "halpern") -> bool:
+    """The scheme's cluster kernel takes (C, R) at these shapes: its lane
+    arrays (the same (2 R + 1) MI values under either scheme) fit the
+    register budget and a CTA's slice and vectors (per-row q assumed) fit
+    its shared memory."""
     mi = _cluster_mi(m)
     return (mi > 0 and (2 * R + 1) * mi * itemsize // 4 <= _CLUSTER_REGS
-            and _cluster_smem(C, R, m, n, itemsize, R) <= _SMEM_MAX)
+            and _cluster_smem(C, R, m, n, itemsize, R, scheme) <= _SMEM_MAX)
 
 
-@functools.lru_cache(maxsize=256)
-def _clusters_per_wave(C: int, R: int, m: int, n: int,
-                       itemsize: int) -> int:
-    """Clusters of C CTAs and R rows each that the current card runs at
-    once at these shapes: ``cudaOccupancyMaxActiveClusters`` of that
-    launch, asked once (nothing is launched)."""
-    import ctypes
+def _occupancy(kernel: str, *args: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of one launch of ``kernel`` on
+    the current card (nothing is launched)."""
     out = ctypes.c_int(0)
-    code = build.load().pdhg_halpern_cluster_occupancy(
-        int(itemsize == 8), C, R, R, m, n, ctypes.addressof(out))
-    build.check(code, f"cudaOccupancyMaxActiveClusters (C={C}, R={R})")
+    code = getattr(build.load(), f"{kernel}_occupancy")(
+        *args, ctypes.addressof(out))
+    build.check(code, f"cudaOccupancyMaxActiveClusters ({kernel} {args})")
     return out.value
 
 
-def _waves(B: int, C: int, R: int, m: int, n: int, itemsize: int) -> int:
+@functools.lru_cache(maxsize=256)
+def _clusters_per_wave(C: int, R: int, m: int, n: int, itemsize: int,
+                       scheme: str = "halpern") -> int:
+    """Clusters of C CTAs and R rows each that the current card runs at
+    once at these shapes, asked once per shape."""
+    return _occupancy(f"pdhg_{scheme}_cluster", int(itemsize == 8), C, R, R,
+                      m, n)
+
+
+def _waves(B: int, C: int, R: int, m: int, n: int, itemsize: int,
+           scheme: str = "halpern") -> int:
     """Waves of clusters a [B] panel takes at C CTAs and R rows each."""
     clusters = -(-B // R)
-    return -(-clusters // _clusters_per_wave(C, R, m, n, itemsize))
+    return -(-clusters // _clusters_per_wave(C, R, m, n, itemsize, scheme))
 
 
-def _cluster_shape(B: int, m: int, n: int, itemsize: int):
+def _cluster_shape(B: int, m: int, n: int, itemsize: int,
+                   scheme: str = "halpern", max_rows: int = 8):
     """(C, R) of the cluster variant for a [B] panel, or None where it does
-    not take these shapes: of the sizes whose slices fit and that the card
-    can schedule, the fewest waves, then the fewest rows per cluster, then
-    the larger cluster."""
+    not take these shapes: of the sizes of at most ``max_rows`` rows whose
+    slices fit and that the card can schedule, the fewest waves, then the
+    fewest rows per cluster, then the larger cluster."""
     fit = [(C, R) for C in _CLUSTER_SIZES for R in _CLUSTER_ROWS
-           if _cluster_fits(C, R, m, n, itemsize)
-           and _clusters_per_wave(C, R, m, n, itemsize) > 0]
+           if R <= max_rows and _cluster_fits(C, R, m, n, itemsize, scheme)
+           and _clusters_per_wave(C, R, m, n, itemsize, scheme) > 0]
     if not fit:
         return None
-    return min(fit, key=lambda cr: (_waves(B, *cr, m, n, itemsize), cr[1],
-                                    -cr[0]))
+    return min(fit, key=lambda cr: (_waves(B, *cr, m, n, itemsize, scheme),
+                                    cr[1], -cr[0]))
+
+
+def _tile_arith(itemsize: int) -> str:
+    """The arithmetic the plan picks for a dtype of this size."""
+    return _TILE_F32 if itemsize == 4 else "mma"
+
+
+def _tile_smem(C: int, m: int, n: int, itemsize: int, arith: str) -> int:
+    """Shared memory of one CTA of a tile kernel, in bytes (mirrors
+    csrc/pdhg_tile.cuh:layout; the same under either scheme): the column
+    slice of K in whole 8 x 8 blocks, the tile's full L and its reflected
+    Yb as the products read them (3xTF32: a TF32 head and a tail plane),
+    the [C, TM, mc] exchange buffer, two [TM, nc] vectors, two [TM, mc]
+    vectors and under 3xTF32 the owned rows' exact L, bounds, q and row
+    scalars."""
+    TM = _TILE_ROWS
+    planes = 2 if arith == "tf32x3" else 1
+    nc = -(-n // C)
+    ncp = -(-nc // 8) * 8
+    mp = -(-m // 8) * 8
+    mc = -(-(mp // 8) // C) * 8
+    return (ncp * mp + TM * mp * planes + C * TM * mc + TM * ncp * planes
+            + 2 * TM * (ncp + 4) + (2 + (planes > 1)) * TM * mc + 3 * ncp
+            + 5 * TM) * itemsize
+
+
+def _tile_fits(C: int, m: int, n: int, itemsize: int, arith: str) -> bool:
+    """The dtype has this arithmetic and a CTA's shared memory holds the
+    tile kernel's footprint."""
+    return (arith in _TILE_ARITH.get(itemsize, ())
+            and _tile_smem(C, m, n, itemsize, arith) <= _SMEM_MAX)
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(B: int, m: int, n: int, itemsize: int) -> tuple:
-    """The variant of the Halpern round for a [B] panel of an [m, n] K:
-    ``("cluster", C, R)`` (clusters of C CTAs, R batch rows each) or
-    ``("rows", ROWS)`` (the row-block kernel, ROWS rows per block). A
+def _tile_clusters_per_wave(C: int, arith: str, m: int, n: int,
+                            itemsize: int, scheme: str = "halpern") -> int:
+    """Clusters of C CTAs that the current card runs at once at these
+    shapes, asked once per shape: the tile kernels launch at most so many
+    and each walks its share of the tiles."""
+    return _occupancy(f"pdhg_{scheme}_tile", int(itemsize == 8), C,
+                      _TILE_ARITH[itemsize][arith], m, n)
+
+
+def _tile_passes(B: int, C: int, arith: str, m: int, n: int, itemsize: int,
+                 scheme: str = "halpern") -> int:
+    """Tiles the busiest cluster walks for a [B] panel."""
+    per_wave = _tile_clusters_per_wave(C, arith, m, n, itemsize, scheme)
+    return -(-(-(-B // _TILE_ROWS)) // per_wave)
+
+
+def _tile_shape(B: int, m: int, n: int, itemsize: int,
+                scheme: str = "halpern", arith: Optional[str] = None):
+    """(C, arith) of the tile variant for a [B] panel (``arith`` defaults
+    to the plan's for the dtype), or None where no cluster size fits: the
+    fewest tiles in turn through the busiest cluster, then the larger
+    cluster (more SMs on each tile). It picked the fastest size at every
+    point of the sweep."""
+    if arith is None:
+        arith = _tile_arith(itemsize)
+    fit = [C for C in _CLUSTER_SIZES
+           if _tile_fits(C, m, n, itemsize, arith)
+           and _tile_clusters_per_wave(C, arith, m, n, itemsize, scheme) > 0]
+    if not fit:
+        return None
+    return min(fit, key=lambda C: (
+        _tile_passes(B, C, arith, m, n, itemsize, scheme), -C)), arith
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(B: int, m: int, n: int, itemsize: int,
+          scheme: str = "halpern") -> tuple:
+    """The variant of the scheme's round for a [B] panel of an [m, n] K:
+    ``("cluster", C, R)``, ``("tile", C, arith)`` or ``("rows", ROWS)``. A
     function of the shapes and the dtype's size, and for a K of at least
-    ``_CLUSTER_MIN_K_BYTES`` of the card's cluster occupancy."""
+    ``_CLUSTER_MIN_K_BYTES`` of the card's cluster occupancy: a panel that
+    one wave of small clusters holds takes the cluster kernel, a larger one
+    the tile kernel, and what fits neither the row-block kernel."""
+    if scheme not in _SCHEMES:
+        raise ValueError(f"unknown scheme {scheme!r}")
     if m * n * itemsize >= _CLUSTER_MIN_K_BYTES:
-        shape = _cluster_shape(B, m, n, itemsize)
-        if shape is not None and _waves(B, *shape, m, n, itemsize) \
-                <= _CLUSTER_MAX_WAVES:
+        tile = _tile_shape(B, m, n, itemsize, scheme)
+        max_rows, max_waves = (8, _CLUSTER_MAX_WAVES) if tile is None \
+            else (_CLUSTER_MAX_ROWS_VS_TILE, 1)
+        shape = _cluster_shape(B, m, n, itemsize, scheme, max_rows)
+        if shape is not None and _waves(B, *shape, m, n, itemsize, scheme) \
+                <= max_waves:
             return ("cluster",) + shape
-    return ("rows", _rows_per_block("pdhg_halpern_round", B,
-                                    (4 * n + 4 * m) * itemsize))
+        if tile is not None:
+            return ("tile",) + tile
+    return ("rows", _rows_per_block(f"pdhg_{scheme}_round", B,
+                                    _row_values(m, n, scheme) * itemsize))
 
 
 def pdhg_halpern_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh,
@@ -187,7 +317,7 @@ def _rows_per_block(name: str, B: int, per_row: int) -> int:
     anyway (each K read then serves them all), one for the small SD-step
     panel (latency-bound: more blocks)."""
     for rows in (4, 2):
-        if rows * per_row <= _SMEM_BUDGET and -(-B // rows) >= 2 * _SMS:
+        if rows * per_row <= _SMEM_BUDGET and -(-B // rows) >= 2 * _sm_count():
             return rows
     if per_row > 227 * 1024:
         raise ValueError(f"{name}: one row needs {per_row} B of shared "
@@ -233,6 +363,47 @@ def _kernel_device(name: str, K: torch.Tensor) -> bool:
     return True
 
 
+def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
+            n_inner: int) -> None:
+    """Launch the scheme's kernel variant that ``plan`` names on the
+    current stream, raise if the launch is refused, and count it."""
+    name = f"pdhg_{scheme}_round"
+    if not (isinstance(plan, tuple) and plan
+            and plan[0] in ("rows", "cluster", "tile")
+            and len(plan) == (2 if plan[0] == "rows" else 3)):
+        raise ValueError(f"{name}: unknown plan {plan!r}")
+    it = K.element_size()
+    if plan[0] == "rows":
+        stem, head = name, (plan[1],)
+    elif plan[0] == "cluster":
+        stem, head = f"pdhg_{scheme}_cluster", plan[1:]
+    else:
+        C, arith = plan[1:]
+        if not _tile_fits(C, m, n, it, arith):
+            raise ValueError(f"{name}: no tile kernel for {plan!r} at "
+                             f"m={m} n={n} itemsize={it}")
+        per_wave = _tile_clusters_per_wave(C, arith, m, n, it, scheme)
+        if per_wave <= 0:
+            raise ValueError(f"{name}: the card cannot schedule {plan!r}")
+        stem = f"pdhg_{scheme}_tile"
+        head = (C, _TILE_ARITH[it][arith],
+                min(-(-B // _TILE_ROWS), per_wave))
+    fn = getattr(build.load(), f"{stem}_f64" if it == 8 else f"{stem}_f32")
+    stream = torch.cuda.current_stream(K.device).cuda_stream
+    with torch.cuda.device(K.device):
+        code = fn(*head, *(t if isinstance(t, int) else t.data_ptr()
+                           for t in operands), B, m, n, int(n_inner), stream)
+    build.check(code, f"{name} {plan}")
+    counter = {("halpern", "rows"): "launches",
+               ("halpern", "cluster"): "cluster_launches",
+               ("halpern", "tile"): "tile_launches",
+               ("average", "rows"): "average_launches",
+               ("average", "cluster"): "average_cluster_launches",
+               ("average", "tile"): "average_tile_launches"}[scheme, plan[0]]
+    globals()[counter] += 1
+    launches_by_shape[counter, B, it] += 1
+
+
 def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,
                        Lanc, n_inner: int, *, plan: Optional[tuple] = None
                        ) -> Tuple[torch.Tensor, ...]:
@@ -244,7 +415,6 @@ def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,
     ``plan`` names (default :func:`_plan` of the shapes), CPU tensors run
     the plain version; anything else raises. A refused launch raises.
     """
-    global launches, cluster_launches
     name = "pdhg_halpern_round"
     if not _kernel_device(name, K):
         return pdhg_halpern_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y,
@@ -261,45 +431,23 @@ def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,
     Yc = torch.empty_like(Y)
     Lc = torch.empty_like(L)
     if plan is None:
-        plan = _plan(B, m, n, K.element_size())
-    lib = build.load()
-    f64 = K.dtype == torch.float64
-    if plan[0] == "cluster":
-        fn = lib.pdhg_halpern_cluster_f64 if f64 \
-            else lib.pdhg_halpern_cluster_f32
-        head = (plan[1], plan[2])
-    elif plan[0] == "rows":
-        fn = lib.pdhg_halpern_round_f64 if f64 \
-            else lib.pdhg_halpern_round_f32
-        head = (plan[1],)
-    else:
-        raise ValueError(f"{name}: unknown plan {plan!r}")
-    stream = torch.cuda.current_stream(K.device).cuda_stream
-    with torch.cuda.device(K.device):
-        code = fn(*head, K.data_ptr(), q.data_ptr(), int(q.dim() == 2),
-                  lb.data_ptr(), ub.data_ptr(), is_eq.data_ptr(),
-                  ht.data_ptr(), tau.data_ptr(), sig.data_ptr(),
-                  Y.data_ptr(), L.data_ptr(), kh.data_ptr(),
-                  Yanc.data_ptr(), Lanc.data_ptr(), Yo.data_ptr(),
-                  Lo.data_ptr(), Yc.data_ptr(), Lc.data_ptr(),
-                  B, m, n, int(n_inner), stream)
-    build.check(code, f"{name} {plan}")
-    if plan[0] == "cluster":
-        cluster_launches += 1
-    else:
-        launches += 1
+        plan = _plan(B, m, n, K.element_size(), "halpern")
+    _launch("halpern", plan, K,
+            (K, q, int(q.dim() == 2), lb, ub, is_eq, ht, tau, sig, Y, L, kh,
+             Yanc, Lanc, Yo, Lo, Yc, Lc), B, m, n, n_inner)
     return Yo, Lo, Yc, Lc
 
 
 def pdhg_average_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L,
-                       n_inner: int) -> Tuple[torch.Tensor, ...]:
+                       n_inner: int, *, plan: Optional[tuple] = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """One restart-to-average round; returns (Y, L, Yavg, Lavg).
 
     Operands as for :func:`pdhg_halpern_round` without the Halpern step
-    count and anchors. CUDA tensors launch the kernel, CPU tensors run the
-    plain version; anything else raises.
+    count and anchors. CUDA tensors launch the kernel variant that ``plan``
+    names (default :func:`_plan` of the shapes under the average scheme),
+    CPU tensors run the plain version; anything else raises.
     """
-    global average_launches
     name = "pdhg_average_round"
     if not _kernel_device(name, K):
         return pdhg_average_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y,
@@ -314,18 +462,9 @@ def pdhg_average_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L,
     Lo = torch.empty_like(L)
     Ya = torch.empty_like(Y)
     La = torch.empty_like(L)
-    rows = _rows_per_block(name, B, (3 * n + 3 * m) * K.element_size())
-    lib = build.load()
-    fn = lib.pdhg_average_round_f32 if K.dtype == torch.float32 \
-        else lib.pdhg_average_round_f64
-    stream = torch.cuda.current_stream(K.device).cuda_stream
-    with torch.cuda.device(K.device):
-        code = fn(rows, K.data_ptr(), q.data_ptr(), int(q.dim() == 2),
-                  lb.data_ptr(), ub.data_ptr(), is_eq.data_ptr(),
-                  ht.data_ptr(), tau.data_ptr(), sig.data_ptr(),
-                  Y.data_ptr(), L.data_ptr(), Yo.data_ptr(), Lo.data_ptr(),
-                  Ya.data_ptr(), La.data_ptr(), B, m, n, int(n_inner),
-                  stream)
-    build.check(code, name)
-    average_launches += 1
+    if plan is None:
+        plan = _plan(B, m, n, K.element_size(), "average")
+    _launch("average", plan, K,
+            (K, q, int(q.dim() == 2), lb, ub, is_eq, ht, tau, sig, Y, L, Yo,
+             Lo, Ya, La), B, m, n, n_inner)
     return Yo, Lo, Ya, La

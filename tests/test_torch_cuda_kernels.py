@@ -48,18 +48,45 @@ def _round_args(name, B, dtype, dev, per_el_q):
             step.clone(), Y, L, kh, Y.clone(), L.clone())
 
 
-def _variant(name, B, dtype, variant):
-    """The plan the test forces: the wrapper's own, or its row-block or
-    cluster alternative at these shapes."""
+def _variant(name, B, dtype, variant, scheme="halpern", arith=None):
+    """The plan the test forces: the wrapper's own, or its row-block,
+    cluster or tile alternative at these shapes (the tile kernel under
+    ``arith``, float64 under its one arithmetic); ("tile", C) forces the
+    cluster size."""
     inst = load_instance(name, dtype=dtype, device="cpu")
     m, n = inst.arrays.W.shape
     it = torch.finfo(dtype).bits // 8
+    if it == 8 or arith is None:
+        arith = pdhg_kernel._tile_arith(it)
+    if isinstance(variant, tuple):
+        return variant + (arith,)
     if variant == "plan":
-        return pdhg_kernel._plan(B, m, n, it)
+        return pdhg_kernel._plan(B, m, n, it, scheme)
     if variant == "rows":
         return ("rows", pdhg_kernel._rows_per_block(
-            "pdhg_halpern_round", B, (4 * n + 4 * m) * it))
-    return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it)
+            f"pdhg_{scheme}_round", B,
+            pdhg_kernel._row_values(m, n, scheme) * it))
+    if variant == "tile":
+        return ("tile",) + pdhg_kernel._tile_shape(B, m, n, it, scheme,
+                                                   arith)
+    return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it, scheme)
+
+
+_COUNTERS = ("launches", "cluster_launches", "tile_launches",
+             "average_launches", "average_cluster_launches",
+             "average_tile_launches")
+
+
+def _counts():
+    return {c: getattr(pdhg_kernel, c) for c in _COUNTERS}
+
+
+def _counter(scheme, plan):
+    return {"rows": "launches", "cluster": "cluster_launches",
+            "tile": "tile_launches"}[plan[0]] if scheme == "halpern" else {
+                "rows": "average_launches",
+                "cluster": "average_cluster_launches",
+                "tile": "average_tile_launches"}[plan[0]]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -68,29 +95,109 @@ def _variant(name, B, dtype, variant):
     ("lands", 8, False, "plan"), ("lands", 8, False, "cluster"),
     ("ssn", 2, False, "plan"), ("ssn", 2, False, "rows"),
     ("ssn", 3, True, "plan"), ("ssn", 3, True, "rows"),
-    ("ssn", 700, False, "plan"), ("ssn", 700, False, "cluster")])
+    ("ssn", 700, False, "plan"), ("ssn", 700, False, "cluster"),
+    ("ssn", 700, False, "rows")])
 def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, variant,
                                           dtype, tol):
     """Each variant of the Halpern round vs the plain version over one
     80-step round; relative tolerance 1e-4 in f32, 1e-10 in f64 (reduction
     order differs). ssn B = 2 and B = 3 take the cluster kernel under the
-    plan; B = 700 the row-block kernel with several rows per block and a
-    ragged last block (forced: the cluster kernel with a ragged last
-    cluster). Each launch counts under its own variant."""
+    plan; B = 700 the tile kernel with a ragged last tile (forced: the
+    row-block kernel with several rows per block and a ragged last block,
+    the cluster kernel with a ragged last cluster). Each launch counts
+    under its own variant."""
     plan = _variant(name, B, dtype, variant)
     if variant == "plan" and name == "ssn":
-        assert plan[0] == ("rows" if B == 700 else "cluster")
+        assert plan[0] == ("tile" if B == 700 else "cluster")
     args = _round_args(name, B, dtype, cuda, per_el_q)
-    before = (pdhg_kernel.launches, pdhg_kernel.cluster_launches)
+    before = _counts()
     out = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
     torch.cuda.synchronize()
-    clustered = plan[0] == "cluster"
-    assert (pdhg_kernel.launches, pdhg_kernel.cluster_launches) == (
-        before[0] + (not clustered), before[1] + clustered)
+    want = dict(before)
+    want[_counter("halpern", plan)] += 1
+    assert _counts() == want
     ref = pdhg_kernel.pdhg_halpern_round_ref(*args, 80)
     for o, r in zip(out, ref):
         scale = 1.0 + float(r.abs().max())
         assert float((o - r).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("per_el_q", [False, True])
+@pytest.mark.parametrize("name,B,variant", [
+    ("ssn", 1, "tile"), ("ssn", 16, "tile"), ("ssn", 100, "tile"),
+    ("ssn", 4096, "tile"), ("ssn", 100, ("tile", 16)),
+    ("ssn", 100, ("tile", 8)), ("lands", 8, ("tile", 1)),
+    ("lands", 40, ("tile", 4)), ("lands", 100, ("tile", 16)),
+    ("ssn", 1, "cluster"), ("ssn", 16, "cluster"), ("ssn", 100, "cluster")])
+@pytest.mark.parametrize("arith", ["tf32x3", "fma"])
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, arith, name,
+                                                   B, variant, per_el_q,
+                                                   dtype, tol):
+    """The cluster-resident kernels of both schemes vs their plain versions
+    over one 80-step round, shared and per-row q: the tile kernel (f32
+    under both of its arithmetics, 3xTF32 on the tensor cores and FP32
+    FMAs) at B = 1, one full tile, a ragged last tile and the MC panel's
+    4096 rows (several tiles per cluster), at the plan's cluster size and
+    at forced ones, on lands too (fewer columns and constraint rows than
+    CTAs: some CTAs own nothing); the cluster kernel at B = 1, the
+    replicated SD step's 16 rows and a ragged last cluster. Two launches
+    are bitwise equal, and each counts under its own variant."""
+    if arith == "fma" and (variant == "cluster" or dtype == torch.float64):
+        pytest.skip("one arithmetic: covered by the other case")
+    args = _round_args(name, B, dtype, cuda, per_el_q)
+    m, n = args[0].shape
+    plan = _variant(name, B, dtype, variant, scheme, arith)
+    if plan[0] == "tile" and not pdhg_kernel._tile_fits(
+            plan[1], m, n, args[0].element_size(), plan[2]):
+        pytest.skip(f"{plan} does not fit {name} in {dtype}")
+    if scheme == "average":
+        args = args[:10]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    before = _counts()
+    out = kernel(*args, 80, plan=plan)
+    again = kernel(*args, 80, plan=plan)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[_counter(scheme, plan)] += 2
+    assert _counts() == want
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+    ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
+    for o, r in zip(out, ref):
+        scale = 1.0 + float(r.abs().max())
+        assert float((o - r).abs().max()) <= tol * scale
+
+
+def test_tile_kernel_keeps_nan(cuda):
+    """A row that has diverged to NaN stays NaN through the tile kernel's
+    split operands, and does not leak into the other rows of its tile."""
+    args = list(_round_args("ssn", 16, torch.float32, cuda, False))
+    args[8] = args[8].clone()
+    args[8][3, 5] = float("nan")
+    out = pdhg_kernel.pdhg_halpern_round(*args, 8,
+                                         plan=("tile", 4, "tf32x3"))
+    ref = pdhg_kernel.pdhg_halpern_round_ref(*args, 8)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(torch.isnan(o), torch.isnan(r))
+        assert bool(torch.isnan(o[3]).any())
+        keep = [i for i in range(16) if i != 3]
+        assert bool(torch.isfinite(o[keep]).all())
+
+
+def test_forced_plans_that_do_not_fit_raise(cuda):
+    """A plan= override the kernels cannot take raises; nothing falls
+    back."""
+    args = _round_args("ssn", 16, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="no tile kernel"):
+        pdhg_kernel.pdhg_halpern_round(*args, 80, plan=("tile", 4, "mma"))
+    with pytest.raises(ValueError, match="unknown plan"):
+        pdhg_kernel.pdhg_average_round(*args[:10], 80, plan=("wgmma", 4))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        pdhg_kernel.pdhg_average_round(*args[:10], 80,
+                                       plan=("cluster", 2, 8))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -117,13 +224,15 @@ def test_cluster_kernels_are_deterministic(cuda, dtype):
                                              ("ssn", 700, False)])
 def test_pdhg_average_round_matches_plain(cuda, name, B, per_el_q, dtype,
                                           tol):
-    """The restart-to-average kernel vs its plain version over one 80-step
-    round (last iterate and running averages), at the tolerances of the
-    Halpern round; it counts its own launches, not the Halpern kernel's."""
+    """The restart-to-average round's row-block kernel vs its plain version
+    over one 80-step round (last iterate and running averages), at the
+    tolerances of the Halpern round; it counts its own launches, not the
+    Halpern kernel's."""
     args = _round_args(name, B, dtype, cuda, per_el_q)[:10]
     before = pdhg_kernel.average_launches
     halpern = pdhg_kernel.launches
-    out = pdhg_kernel.pdhg_average_round(*args, 80)
+    out = pdhg_kernel.pdhg_average_round(
+        *args, 80, plan=_variant(name, B, dtype, "rows", "average"))
     torch.cuda.synchronize()
     assert pdhg_kernel.average_launches == before + 1
     assert pdhg_kernel.launches == halpern

@@ -1,12 +1,13 @@
 """The kernels' plan functions: which variant each wrapper launches for a
-shape, from the shapes, the dtype and (for the Halpern round) the card's
+shape, from the shapes, the dtype and (for the PDHG rounds) the card's
 cluster occupancy.
 
 The expected variants are the ones the H100 measurements chose
-(``chip_smoke.py --phases sweep``; PERF.md): the cluster Halpern round for
-the small panels of an instance whose K does not fit L1, the row-block
-round for large panels and small K, and the master on a cluster of 8
-(one block for a master as small as lands').
+(``chip_smoke.py --phases sweep``; PERF.md): for either PDHG round the
+cluster kernel for the small panels of an instance whose K does not fit
+L1, the tile kernel (tensor cores) for its large panels, the row-block
+kernel for a small K or a K whose slices fit no cluster, and the master on
+a cluster of 8 (one block for a master as small as lands').
 """
 
 import pytest
@@ -18,19 +19,22 @@ from sqlp_tpu_torch.ops.cuda import admm_kernel, pdhg_kernel
 torch.set_num_threads(1)
 
 _SHAPES = {}
+SMEM_MAX = 227 * 1024
 
-# cudaOccupancyMaxActiveClusters of the cluster Halpern round on an NVIDIA
-# H100 80GB HBM3 (132 SMs), the same at every (R, dtype) footprint the
-# plan admits: one CTA per SM (chip_smoke.py --phases sweep prints it)
+# cudaOccupancyMaxActiveClusters of the cluster and the tile kernels on an
+# NVIDIA H100 80GB HBM3 (132 SMs), the same at every footprint the plans
+# admit: one CTA per SM (chip_smoke.py --phases sweep prints it)
 H100_CLUSTERS_PER_WAVE = {4: 30, 8: 15, 16: 7}
 
 
 @pytest.fixture
 def h100(monkeypatch):
-    """The plan as it decides on the H100, on any host."""
+    """The plans as they decide on the H100, on any host."""
     monkeypatch.setattr(pdhg_kernel, "_clusters_per_wave",
-                        lambda C, R, m, n, itemsize:
-                        H100_CLUSTERS_PER_WAVE[C])
+                        lambda C, *rest: H100_CLUSTERS_PER_WAVE[C])
+    monkeypatch.setattr(pdhg_kernel, "_tile_clusters_per_wave",
+                        lambda C, *rest: H100_CLUSTERS_PER_WAVE[C])
+    monkeypatch.setattr(pdhg_kernel, "_sm_count", lambda: 132)
     pdhg_kernel._plan.cache_clear()
     yield
     pdhg_kernel._plan.cache_clear()
@@ -44,67 +48,214 @@ def _shape(name):
     return _SHAPES[name]
 
 
+INSTANCES = ["lands", "transship", "baa99-20", "ssn", "storm"]
+PANELS = (2, 16, 256, 4096)
 ROWS1, ROWS2, ROWS4 = ("rows", 1), ("rows", 2), ("rows", 4)
-# (instance, itemsize) -> the plan at B = 2, 16, 4096
+SMALL_K = (ROWS1, ROWS1, ROWS1, ROWS4)
+F32 = pdhg_kernel._TILE_F32     # the float32 arithmetic the plan picks
+# (instance, itemsize) -> the Halpern round's plan at B = 2, 16, 256, 4096
 _PDHG = {
-    ("lands", 4): (ROWS1, ROWS1, ROWS4),
-    ("lands", 8): (ROWS1, ROWS1, ROWS4),
-    ("transship", 4): (ROWS1, ROWS1, ROWS4),
-    ("transship", 8): (ROWS1, ROWS1, ROWS4),
-    ("ssn", 4): (("cluster", 16, 1), ("cluster", 4, 1), ROWS4),
-    ("ssn", 8): (("cluster", 16, 1), ("cluster", 8, 2), ROWS4),
-    ("storm", 4): (("cluster", 16, 1), ("cluster", 16, 1), ROWS4),
-    ("storm", 8): (ROWS1, ROWS1, ROWS2),
+    **{(name, it): SMALL_K for name in INSTANCES[:3] for it in (4, 8)},
+    ("ssn", 4): (("cluster", 16, 1), ("cluster", 4, 1), ("tile", 4, F32),
+                 ("tile", 4, F32)),
+    ("ssn", 8): (("cluster", 16, 1), ("cluster", 8, 2), ("tile", 8, "mma"),
+                 ("tile", 8, "mma")),
+    ("storm", 4): (("cluster", 16, 1), ("cluster", 16, 1), ROWS1, ROWS4),
+    ("storm", 8): (ROWS1, ROWS1, ROWS1, ROWS2),
 }
 
 
-@pytest.mark.parametrize("B", [2, 16, 4096])
-@pytest.mark.parametrize("itemsize", [4, 8])
-@pytest.mark.parametrize("name", ["lands", "transship", "ssn", "storm"])
-def test_pdhg_plan(h100, name, itemsize, B):
-    """The Halpern round's variant at the SD step's panel (B = 2), a short
-    ladder tail (16) and the MC panel (4096). Small K stays on the
-    row-block kernel; ssn's 2-row panel takes a cluster of 16 per row
-    (measured faster than 8), B = 16 one wave of 4-CTA clusters in f32 and
-    of 8-CTA clusters with 2 rows in f64; storm's f32 K fits only 16 CTAs
-    and its f64 K (5.3 MB) no cluster at all. A cluster plan's slice fits
-    a CTA's shared memory and its lane arrays the register budget."""
-    m, n = _shape(name)
-    plan = pdhg_kernel._plan(B, m, n, itemsize)
-    assert plan == _PDHG[(name, itemsize)][(2, 16, 4096).index(B)]
+def _check_admitted(plan, B, m, n, itemsize, scheme):
+    """A cluster or tile plan's footprint fits a CTA and its registers."""
     if plan[0] == "cluster":
         _, C, R = plan
-        assert pdhg_kernel._cluster_fits(C, R, m, n, itemsize)
-        assert pdhg_kernel._cluster_smem(C, R, m, n, itemsize, R) \
-            <= 227 * 1024
-        assert pdhg_kernel._waves(B, C, R, m, n, itemsize) \
+        assert pdhg_kernel._cluster_fits(C, R, m, n, itemsize, scheme)
+        assert pdhg_kernel._cluster_smem(C, R, m, n, itemsize, R, scheme) \
+            <= SMEM_MAX
+        assert pdhg_kernel._waves(B, C, R, m, n, itemsize, scheme) \
             <= pdhg_kernel._CLUSTER_MAX_WAVES
+    elif plan[0] == "tile":
+        _, C, arith = plan
+        assert arith in pdhg_kernel._TILE_ARITH[itemsize]
+        assert pdhg_kernel._tile_smem(C, m, n, itemsize, arith) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("B", PANELS)
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", INSTANCES)
+def test_pdhg_plan(h100, name, itemsize, B):
+    """The Halpern round's variant at the SD step's panel (B = 2), a short
+    ladder tail (16), a ladder rung (256) and the MC panel (4096). Small K
+    stays on the row-block kernel; ssn's 2-row panel takes a cluster of 16
+    per row (measured faster than 8), B = 16 one wave of 4-CTA clusters in
+    f32 and of 8-CTA clusters with 2 rows in f64, and from B = 256 the tile
+    kernel on 30 clusters of 4 (f32) or 15 of 8 (f64: K's f64 slices need
+    8 CTAs); storm's f32 K fits only the cluster kernel at 16 CTAs, no
+    tile shape, and its f64 K (5.3 MB) no cluster at all."""
+    m, n = _shape(name)
+    plan = pdhg_kernel._plan(B, m, n, itemsize)
+    assert plan == _PDHG[(name, itemsize)][PANELS.index(B)]
+    _check_admitted(plan, B, m, n, itemsize, "halpern")
+
+
+@pytest.mark.parametrize("B", PANELS)
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", INSTANCES)
+def test_average_plan(h100, name, itemsize, B):
+    """The average round's variant at the same panels (16 is the replicated
+    SD step's panel at 8 replications). Its cluster and tile kernels take
+    what the Halpern round's take; on the row-block kernel a row keeps 3
+    vectors of each length instead of 4, so storm's f64 MC panel carries 4
+    rows per block where the Halpern round carries 2."""
+    m, n = _shape(name)
+    plan = pdhg_kernel._plan(B, m, n, itemsize, "average")
+    want = _PDHG[(name, itemsize)][PANELS.index(B)]
+    if (name, itemsize, B) == ("storm", 8, 4096):
+        want = ROWS4
+    assert plan == want
+    _check_admitted(plan, B, m, n, itemsize, "average")
 
 
 def test_pdhg_plan_on_the_mc_ladder(h100):
-    """ssn's MC ladder (4096, 1024, 256): the 256-row rung fits three waves
-    of 4-CTA clusters in f32 and takes the cluster kernel (measured faster
-    there); past three waves, and in f64 at 256, the row-block kernel."""
+    """ssn's MC ladder (4096, 1024, 256) takes the tile kernel on every
+    rung, in f32 and f64; its tails split at what one wave of clusters of
+    at most 2 rows holds: 60 rows in f32 (30 clusters of 4), 30 in f64 (15
+    of 8). A single pass of tiles takes the largest cluster (more SMs per
+    tile), several passes the smallest that fits (more tiles at once)."""
     m, n = _shape("ssn")
-    assert pdhg_kernel._plan(256, m, n, 4) == ("cluster", 4, 4)
-    assert pdhg_kernel._plan(1024, m, n, 4)[0] == "rows"
-    assert pdhg_kernel._plan(256, m, n, 8)[0] == "rows"
+    for B in (4096, 1024, 256):
+        assert pdhg_kernel._plan(B, m, n, 4) == ("tile", 4, F32)
+        assert pdhg_kernel._plan(B, m, n, 8) == ("tile", 8, "mma")
+    assert pdhg_kernel._plan(60, m, n, 4) == ("cluster", 4, 2)
+    assert pdhg_kernel._plan(64, m, n, 4) == ("tile", 16, F32)
+    assert pdhg_kernel._plan(30, m, n, 8) == ("cluster", 8, 2)
+    assert pdhg_kernel._plan(32, m, n, 8) == ("tile", 16, "mma")
 
 
 @pytest.mark.parametrize("name", ["lands", "transship"])
 def test_pdhg_plan_small_k_never_asks_the_card(name, monkeypatch):
     """A K under _CLUSTER_MIN_K_BYTES takes the row-block kernel without
-    asking the card for its cluster occupancy, on any host."""
+    asking the card for its cluster occupancy (only for its SM count), on
+    any host."""
     def refuse(*args):
         raise AssertionError("the plan asked the card")
     monkeypatch.setattr(pdhg_kernel, "_clusters_per_wave", refuse)
+    monkeypatch.setattr(pdhg_kernel, "_tile_clusters_per_wave", refuse)
+    monkeypatch.setattr(pdhg_kernel, "_sm_count", lambda: 132)
     pdhg_kernel._plan.cache_clear()
     m, n = _shape(name)
     try:
-        for B in (2, 16, 4096):
-            assert pdhg_kernel._plan(B, m, n, 8)[0] == "rows"
+        for scheme in ("halpern", "average"):
+            for B in (2, 16, 4096):
+                assert pdhg_kernel._plan(B, m, n, 8, scheme)[0] == "rows"
     finally:
         pdhg_kernel._plan.cache_clear()
+
+
+def _tile_smem_by_region(C, m, n, itemsize, arith):
+    """csrc/pdhg_tile.cuh:layout, region by region."""
+    TM = 16
+    planes = 2 if arith == "tf32x3" else 1
+    nc = (n + C - 1) // C
+    ncp = (nc + 7) // 8 * 8
+    mp = (m + 7) // 8 * 8
+    mc = (mp // 8 + C - 1) // C * 8
+    regions = {
+        "Ks": ncp * mp, "Lf": TM * mp * planes, "Rx": C * TM * mc,
+        "Yb": TM * ncp * planes, "Yc": TM * (ncp + 4), "Ya": TM * (ncp + 4),
+        "Lo": TM * mc if planes > 1 else 0, "La": TM * mc, "hs": TM * mc,
+        "lbs": ncp, "ubs": ncp, "qs": ncp, "rows": 5 * TM}
+    assert all(v % 4 == 0 for v in regions.values())   # 16-byte loads
+    return sum(regions.values()) * itemsize
+
+
+@pytest.mark.parametrize("itemsize,arith", [(4, "tf32x3"), (4, "fma"),
+                                            (8, "mma")])
+@pytest.mark.parametrize("name", INSTANCES)
+def test_tile_smem_mirrors_the_kernel_layout(name, itemsize, arith):
+    """_tile_smem is the sum of the kernel's shared-memory regions at
+    every cluster size and arithmetic (3xTF32 keeps a head and a tail
+    plane of L and Yb and the owned rows' exact L; the FMA and FP64
+    products one exact plane), and _tile_fits admits exactly the sizes
+    under 227 KB: ssn from 4 CTAs in f32, from 8 in f64, nothing for
+    storm; and no arithmetic of the other dtype."""
+    m, n = _shape(name)
+    fits = set()
+    for C in (1, 4, 8, 16):
+        want = _tile_smem_by_region(C, m, n, itemsize, arith)
+        assert pdhg_kernel._tile_smem(C, m, n, itemsize, arith) == want
+        assert pdhg_kernel._tile_fits(C, m, n, itemsize, arith) \
+            == (want <= SMEM_MAX)
+        assert not pdhg_kernel._tile_fits(C, m, n, 12 - itemsize, arith)
+        if want <= SMEM_MAX:
+            fits.add(C)
+    if name == "ssn":
+        assert fits == ({4, 8, 16} if itemsize == 4 else {8, 16})
+    if name == "storm":
+        assert not fits
+
+
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", ["ssn", "storm"])
+def test_average_cluster_counts_its_own_footprint(name, itemsize, R):
+    """The average scheme's cluster kernel keeps 2 [nc] and 3 [m] vectors
+    per row where the Halpern one keeps 3 and 4 (no anchors, no separate
+    candidate), the same K slice, scratch and exchange buffers, and the
+    same lane arrays: (2 R + 1) MI values against 108 registers."""
+    m, n = _shape(name)
+    for C in pdhg_kernel._CLUSTER_SIZES:
+        nc = -(-n // C)
+        halpern = pdhg_kernel._cluster_smem(C, R, m, n, itemsize, R)
+        average = pdhg_kernel._cluster_smem(C, R, m, n, itemsize, R,
+                                            "average")
+        assert halpern - average == R * (nc + m) * itemsize
+        regs_ok = (2 * R + 1) * pdhg_kernel._cluster_mi(m) * itemsize // 4 \
+            <= pdhg_kernel._CLUSTER_REGS
+        for scheme, smem in (("halpern", halpern), ("average", average)):
+            assert pdhg_kernel._cluster_fits(C, R, m, n, itemsize, scheme) \
+                == (regs_ok and smem <= SMEM_MAX)
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+@pytest.mark.parametrize("plan", [("wgmma", 4, "mma"), ("tile", 4), ("rows",),
+                                  "tile", None, ("cluster", 4, 1, 1)])
+def test_launch_refuses_an_unknown_plan(scheme, plan):
+    """A plan= override that names no variant raises before anything is
+    built or launched, on any host."""
+    K = torch.zeros((7, 12))
+    with pytest.raises(ValueError, match="unknown plan"):
+        pdhg_kernel._launch(scheme, plan, K, (), 8, 7, 12, 80)
+
+
+def test_plan_refuses_an_unknown_scheme():
+    with pytest.raises(ValueError, match="unknown scheme"):
+        pdhg_kernel._plan(16, 175, 706, 4, "polyak")
+
+
+@pytest.mark.parametrize("plan", [("tile", 1, "tf32x3"), ("tile", 1, "fma"),
+                                  ("tile", 4, "mma"), ("tile", 4, "bf16x3"),
+                                  ("tile", 4, 16)])
+def test_launch_refuses_a_tile_plan_the_kernel_does_not_take(plan):
+    """A forced tile plan whose footprint misses a CTA's shared memory, or
+    whose arithmetic the dtype does not have, raises at the wrapper, before
+    the card is asked."""
+    K = torch.zeros((175, 706))
+    with pytest.raises(ValueError, match="no tile kernel"):
+        pdhg_kernel._launch("halpern", plan, K, (), 64, 175, 706, 80)
+
+
+def test_tile_shape_per_arithmetic(h100):
+    """_tile_shape answers for the arithmetic it is asked for (the gate's
+    partners) and defaults to the plan's: ssn's MC panel on 30 clusters of
+    4 under either float32 arithmetic, on 15 of 8 in float64."""
+    m, n = _shape("ssn")
+    for arith in ("tf32x3", "fma"):
+        assert pdhg_kernel._tile_shape(4096, m, n, 4, "halpern", arith) \
+            == (4, arith)
+    assert pdhg_kernel._tile_shape(4096, m, n, 4) == (4, F32)
+    assert pdhg_kernel._tile_shape(4096, m, n, 8, "average") == (8, "mma")
+    assert pdhg_kernel._tile_shape(4096, *_shape("storm"), 4) is None
 
 
 # (mA, nz) of the SD masters at K = 96 cuts: ssn, storm, and lands'
