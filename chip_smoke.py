@@ -3,12 +3,13 @@
     python3 chip_smoke.py                       # every phase, as a check
     python3 chip_smoke.py --iters 300 --rep-iters 100 \
         --phases device,b1,b2,b3,main,replicated,small,cli,cli_rep
+    python3 chip_smoke.py --phases device,certify,cli_cert
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
 variant of both PDHG rounds, row-block, cluster and tile, wherever the
 variant takes the shape), and
-drives three paths with the kernels' launch counts reset just before and
+drives four paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
 settings, then the Monte-Carlo upper bound over 4096 scenarios; run twice,
 `main` and `main2`, whose seeded bounds must agree bitwise) and the
@@ -17,19 +18,31 @@ restart-to-average PDHG scheme, the compromise decision, its stratified
 Monte-Carlo bound), and the small path (lands, whose K fits L1 and stays
 on the row-block kernels: a single SD run and 3 replications under the
 average scheme). The main path also holds the tile kernel's float32
-arithmetic to its gate: the same 4096-row panels, at the same x over
-three seeds, through the row-block kernel (FP32 FMAs), through the tile
-kernel's 3xTF32 products and through its FP32 FMA products (a control:
-exact FP32 in the tile kernel's order); the total rounds within 5 % of the
-row-block kernel's and every mean within the half-width. The arithmetic
-the plan picks must pass. It then
+products (FP32 FMAs in the tile kernel's order) to a gate over whole
+solves: the same 4096-row panels, at the same x over three seeds,
+through the tile kernel and through the row-block kernel; the total
+rounds within 5 % of the row-block kernel's and every mean within the
+half-width. It then
 runs the lands CLI, single and replicated, against the known optimum
-381.8533. Any failed phase exits non-zero. The
+381.8533. The certified path (`certify`): 8 lockstep SD replications on
+ssn at the flagship settings, the compromise decision, then the CLI's own
+certify tail: 8 extensive forms of 3000 fresh Latin-hypercube scenarios
+each (plain torch matmuls), their f64 continuation, the dual projection,
+the host LPs, the decision picked among the compromise and the EF argmins
+on a shared panel, its bound on an independent one; gated on every EF at
+tol 1e-5, dual infeasibility at most 1e-9, each bound within 0.1 of its
+EF objective, and lb_cert below the decision's ub + hw. `cli_cert` runs
+the lands CLI's `--certify`, `ef` and `--x0 crash` at once, against the
+known optimum (the EF against the exact optimum of its own scenarios);
+the CLI phases start their runs together. Any failed phase exits
+non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
 The phase `profile` (not run by default) breaks the main and the
-replicated path's time down by phase of the SD step and by kernel. The phase
+replicated path's time down by phase of the SD step and by kernel;
+`profile_ef` (not run by default) times the certification EF's round and
+reads the card's busy share under it. The phase
 `sweep` (not run by default) times every variant the kernels admit at the
 shapes their plan functions decide between: the thresholds of
 ops/cuda/pdhg_kernel.py:_plan and ops/cuda/admm_kernel.py:_plan come from
@@ -247,8 +260,8 @@ _PDHG_ENTRY = {
 
 def _variants(args, scheme):
     """A round's variants to check at these operands: the plan's first,
-    then the row-block kernel and the cluster and tile kernels (every
-    arithmetic) wherever they take the shape."""
+    then the row-block kernel and the cluster and tile kernels wherever
+    they take the shape."""
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     m, n = args[0].shape
     B = args[5].shape[0]
@@ -257,10 +270,9 @@ def _variants(args, scheme):
     rows = ("rows", pk._rows_per_block(
         f"pdhg_{scheme}_round", B, pk._row_values(m, n, scheme) * it))
     shape = pk._cluster_shape(B, m, n, it, scheme)
-    tiles = [pk._tile_shape(B, m, n, it, scheme, arith)
-             for arith in pk._TILE_ARITH[it]]
+    tile = pk._tile_shape(B, m, n, it, scheme)
     for alt in (rows, ("cluster",) + shape if shape else None,
-                *(("tile",) + t if t else None for t in tiles)):
+                ("tile",) + tile if tile else None):
         if alt is not None and alt not in out:
             out.append(alt)
     return out
@@ -290,7 +302,7 @@ def phase_pdhg(results, phase):
             plain_ms = time_ms(lambda: plain(*args, n_inner), reps)
             bound = pdhg_bound(args, n_inner, dname)
             variants = _variants(args, scheme)
-            took = {}       # ms by variant: "rows", "cluster", tile's arith
+            took = {}       # ms by variant: "rows", "cluster", "tile"
             for plan in variants:
                 out = kernel(*args, n_inner, plan=plan)
                 torch.cuda.synchronize()
@@ -318,7 +330,7 @@ def phase_pdhg(results, phase):
                                          f"{dname}")
                 key, at_inst, at_B = _PDHG_ENTRY[scheme, plan[0]]
                 worst[key] = max(worst.get(key, 0.0), abs_err)
-                took[plan[2] if plan[0] == "tile" else plan[0]] = ms
+                took[plan[0]] = ms
                 if dname == "float32" and not per_el \
                         and (inst, B) == (at_inst, at_B) \
                         and plan == variants[0]:
@@ -331,10 +343,6 @@ def phase_pdhg(results, phase):
                     and (inst, B) == (at_inst, at_B):
                 # the other variants' times at the shape the entry reports
                 results[key]["rowblock_ms"] = took["rows"]
-                if variants[0][0] == "tile":
-                    results[key]["arith_ms"] = {
-                        k: v for k, v in took.items()
-                        if k in pk._TILE_ARITH[4]}
     for key, v in worst.items():
         results[key]["max_abs_err"] = v
 
@@ -486,9 +494,8 @@ def _sweep_round(scheme, inst, B, dtype):
         plans += [("cluster", C, R) for C in pk._CLUSTER_SIZES
                   for R in pk._CLUSTER_ROWS
                   if R <= B and pk._cluster_fits(C, R, m, n, it, scheme)]
-    plans += [("tile", C, arith) for C in pk._CLUSTER_SIZES
-              for arith in pk._TILE_ARITH[it]
-              if pk._tile_fits(C, m, n, it, arith)]
+    plans += [("tile", C, pk._TILE_ARITH[it]) for C in pk._CLUSTER_SIZES
+              if pk._tile_fits(C, m, n, it, pk._TILE_ARITH[it])]
     chosen = pk._plan(B, m, n, it, scheme)
     ref = getattr(pk, name + "_ref")(*args, n_inner)
     reps = 3 if B >= 1024 else 10
@@ -496,7 +503,7 @@ def _sweep_round(scheme, inst, B, dtype):
         if plan[0] == "cluster":
             occ = pk._clusters_per_wave(*plan[1:], m, n, it, scheme)
         elif plan[0] == "tile":
-            occ = pk._tile_clusters_per_wave(*plan[1:], m, n, it, scheme)
+            occ = pk._tile_clusters_per_wave(plan[1], m, n, it, scheme)
         else:
             occ = None
         tag = f"[sweep] {scheme} {inst} B={B} {dname} {plan}"
@@ -521,7 +528,7 @@ def phase_sweep():
     """Every variant the kernels admit, timed at the shapes their plans
     decide between (one call, one card): both PDHG rounds' row-block
     kernels against their cluster kernels (cluster sizes, rows per
-    cluster) and tile kernels (cluster sizes, arithmetic), and B3 over
+    cluster) and tile kernels (cluster sizes), and B3 over
     cluster sizes."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
@@ -567,7 +574,7 @@ def phase_sweep():
                 f"per step, {1e3 * (t1 - (t25 - t1) / 24):.1f} us fixed")
 
 
-def phase_main(results, iters, gate=False):
+def phase_main(results, iters, gate=False, path="main"):
     import numpy as np
     import torch
     from sqlp_tpu_torch.models.instance import load_instance
@@ -604,7 +611,8 @@ def phase_main(results, iters, gate=False):
     if not all(math.isfinite(v) for v in (lb, ub, hw)):
         raise AssertionError(f"non-finite bounds lb={lb} ub={ub} hw={hw}")
     _record_launches(results, counts, ("pdhg_halpern_cluster",
-                                       "pdhg_halpern_tile", "admm_round"))
+                                       "pdhg_halpern_tile", "admm_round"),
+                     path)
     if counts["pdhg_halpern_round"] != 0:
         raise AssertionError(f"ssn main path left a rung on the row-block "
                              f"kernel: {rungs}")
@@ -705,6 +713,64 @@ def phase_profile(path, iters):
             f"{e.count} launches")
 
 
+def phase_profile_ef():
+    """Where the certification EF's time goes: ssn, 8 extensive forms of
+    3000 stratified scenarios each (the certify phase's shapes), in f32,
+    with the tolerance at 0 so every call runs its whole budget: a call
+    of 2 restart rounds and one of 6, host clock around each (their
+    difference is 4 rounds without the set-up), then 2 rounds under
+    torch.profiler for the device's busy share and its time by kernel."""
+    import torch
+    from sqlp_tpu_torch.config import PDHGConfig
+    from sqlp_tpu_torch.models.crash import solve_extensive_form
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.models.scenario import sample_deltas
+    from sqlp_tpu_torch.sd.lower_bound import stream_generator
+
+    tag = "[profile ef]"
+    dev = torch.device("cuda")
+    inst = load_instance("ssn", dtype=torch.float32, device=dev)
+    R, S = 8, 3000
+    deltas = torch.stack([sample_deltas(stream_generator(dev, 9000, r),
+                                        inst.scenario_model, S,
+                                        method="stratified")
+                          for r in range(R)])
+    probs = torch.full((S,), 1.0 / S, dtype=torch.float32, device=dev)
+
+    def solve(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve_extensive_form(inst.arrays, inst.scenario_model, deltas, probs,
+                             PDHGConfig(tol=0.0, max_iters=80 * rounds))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    solve(1)
+    short, long_ = solve(2), solve(6)
+    log(f"{tag} ssn R={R} S={S} f32: 2 rounds {short:.3f}s, 6 rounds "
+        f"{long_:.3f}s: {1e3 * (long_ - short) / 4:.2f} ms per 80-step "
+        f"round, {1e3 * (long_ - short) / 320:.3f} ms per step; set-up "
+        f"{short - (long_ - short) / 2:.3f}s")
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_extensive_form(inst.arrays, inst.scenario_model, deltas, probs,
+                             PDHGConfig(tol=0.0, max_iters=160))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e6
+    log(f"{tag} 2 rounds under torch.profiler: wall {wall:.3f}s, device "
+        f"busy {busy:.3f}s ({100 * busy / wall:.1f} % of the wall)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        log(f"{tag}   {e.key[:70]}: {e.device_time_total / 1e3:.1f} ms in "
+            f"{e.count} launches")
+
+
 _PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
                   "pdhg_halpern_cluster": "cluster_launches",
                   "pdhg_halpern_tile": "tile_launches",
@@ -741,9 +807,15 @@ def _by_rung():
                      for (c, B, it), v in rows)
 
 
-def _record_launches(results, counts, keys):
+def _record_launches(results, counts, keys, path):
+    """The path's launches of each kernel in ``keys`` (counted from a reset
+    just before the path to a read just after it); a kernel's ``launches``
+    is the sum over the paths that ran it, ``launches_by_path`` the
+    parts."""
     for k in keys:
-        results[k]["launches"] = counts[k]
+        by_path = results[k].setdefault("launches_by_path", {})
+        by_path[path] = counts[k]
+        results[k]["launches"] = sum(by_path.values())
     missing = [k for k in keys if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the path never launched {missing}: {counts}")
@@ -752,51 +824,47 @@ def _record_launches(results, counts, keys):
 GATE_SEEDS = (1, 2, 3)
 
 
-def _f32_tiles_as(pk, real, kind):
+def _f32_tiles_as_rows(pk, real):
     """The plan function ``real`` with every float32 tile plan replaced by
-    the row-block kernel's (kind "rows") or by the tile plan of that
-    arithmetic: the partners of the gate over a whole solve. The float64
-    rung keeps its plan, so the runs differ in the float32 products
-    alone."""
+    the row-block kernel's: the gate's partner over a whole solve. The
+    float64 rung keeps its plan, so the runs differ in the float32
+    products alone."""
 
     def plan(B, m, n, itemsize, scheme="halpern"):
         out = real(B, m, n, itemsize, scheme)
         if out[0] != "tile" or itemsize != 4:
             return out
-        if kind == "rows":
-            return ("rows", pk._rows_per_block(
-                f"pdhg_{scheme}_round", B,
-                pk._row_values(m, n, scheme) * itemsize))
-        return ("tile",) + pk._tile_shape(B, m, n, itemsize, scheme, kind)
+        return ("rows", pk._rows_per_block(
+            f"pdhg_{scheme}_round", B,
+            pk._row_values(m, n, scheme) * itemsize))
     return plan
 
 
 def _f32_gate(tag, evaluate):
-    """The gate of the tile kernel's float32 arithmetic. ``evaluate(seed)``
+    """The gate of the tile kernel's float32 products. ``evaluate(seed)``
     solves one 4096-row panel at the path's x and returns (mean,
     half-width, n). Every seed's panel goes through the row-block kernel
-    (plain FP32 FMAs), through the tile kernel's 3xTF32 products and
-    through its FP32 FMA products (the control: the tile kernel's tiles,
-    exchange and summation order, exact FP32), wherever the plan says tile
-    in float32. An arithmetic passes when its total rounds over the seeds
+    (plain FP32 FMAs) and through the path's own plans, whose float32
+    tiles run FP32 FMAs in the tile kernel's tiles, exchange and summation
+    order. It passes when the tile kernel's total rounds over the seeds
     are within 5 % of the row-block kernel's and every seed's mean is
-    within the larger half-width of the row-block kernel's. The one the
-    plan picks must pass. Single panels differ by up to 20 % between any
-    two of the kernels (a few stragglers' restarts decide the tail), so
-    the seeds' rounds are printed one by one and judged in total."""
+    within the larger half-width of the row-block kernel's. Single panels
+    differ by up to 20 % between the kernels (a few stragglers' restarts
+    decide the tail), so the seeds' rounds are printed one by one and
+    judged in total."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
     saved = dict(pk.launches_by_shape), _counts()
     real = pk._plan
-    kinds = ("rows", *pk._TILE_ARITH[4])
-    rounds = {k: 0 for k in kinds}
-    means_ok = {k: True for k in kinds}
+    plans = {"rows": _f32_tiles_as_rows(pk, real), "tile": real}
+    rounds = {k: 0 for k in plans}
+    means_ok = True
     try:
         for seed in GATE_SEEDS:
             ref = None
-            for kind in kinds:
-                pk._plan = _f32_tiles_as(pk, real, kind)
+            for kind, plan in plans.items():
+                pk._plan = plan
                 _reset_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -808,7 +876,7 @@ def _f32_gate(tag, evaluate):
                 if ref is None:
                     ref = (ub, hw)
                 elif abs(ub - ref[0]) > max(hw, ref[1]):
-                    means_ok[kind] = False
+                    means_ok = False
                 log(f"{tag} gate seed {seed} {kind}: {n} rounds, mc_ub="
                     f"{ub:.6f} +- {hw:.4f}, {sec:.2f}s; {_by_rung()}")
     finally:
@@ -819,21 +887,17 @@ def _f32_gate(tag, evaluate):
     for k, attr in _PDHG_COUNTERS.items():
         setattr(pk, attr, saved[1][k])
 
-    def apart(kind):
-        return abs(rounds[kind] - rounds["rows"]) / max(rounds["rows"], 1)
+    apart = abs(rounds["tile"] - rounds["rows"]) / max(rounds["rows"], 1)
     limit = 0.05
-    verdict = {}
-    for kind in kinds[1:]:
-        verdict[kind] = apart(kind) <= limit and means_ok[kind]
-        log(f"{tag} f32 gate, {kind}: {rounds[kind]} rounds over seeds "
-            f"{GATE_SEEDS} against the row-block kernel's {rounds['rows']}: "
-            f"{100 * apart(kind):.2f} % (limit {100 * limit:.0f} %), means "
-            f"within the half-width: {means_ok[kind]}: "
-            f"{'pass' if verdict[kind] else 'FAIL'}")
-    log(f"{tag} f32 gate: the plan picks {pk._TILE_F32}")
-    if not verdict[pk._TILE_F32]:
-        raise AssertionError(f"the tile kernel's {pk._TILE_F32} products "
-                             f"fail their gate against the row-block kernel")
+    ok = apart <= limit and means_ok
+    log(f"{tag} f32 gate: the tile kernel's {rounds['tile']} rounds over "
+        f"seeds {GATE_SEEDS} against the row-block kernel's "
+        f"{rounds['rows']}: {100 * apart:.2f} % (limit {100 * limit:.0f} %), "
+        f"means within the half-width: {means_ok}: "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the tile kernel's float32 products fail their "
+                             "gate against the row-block kernel")
 
 
 def phase_replicated(results, iters):
@@ -892,7 +956,7 @@ def phase_replicated(results, iters):
         raise AssertionError(f"non-finite results lb={lbs} x={x_comp} "
                              f"ub={ub} hw={hw}")
     _record_launches(results, counts, ("pdhg_average_cluster",
-                                       "pdhg_average_tile"))
+                                       "pdhg_average_tile"), "replicated")
     if counts["admm_round"] <= 0:
         raise AssertionError(f"replicated path never launched B3: {counts}")
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
@@ -942,58 +1006,356 @@ def phase_small(results):
             f"{hw:.4f}; launches by rung: {_by_rung()}")
         if not (math.isfinite(ub) and math.isfinite(hw)):
             raise AssertionError(f"non-finite lands bound {ub} +- {hw}")
-        _record_launches(results, counts, (key,))
+        _record_launches(results, counts, (key,), f"small {scheme}")
 
 
-def phase_cli():
+# the certify phase's gates (RESULTS.md round 5 measured |lb - ef_obj| at
+# 0.01-0.05 on ssn at EF tol 1e-5)
+CERT_EF_TOL = 1e-5
+CERT_DUAL_INFEAS = 1e-9
+CERT_LB_TO_EF = 0.1
+
+
+def phase_certify(results, iters, eval_samples):
+    """The certified path: ssn at the flagship settings (Halpern, f32),
+    8 lockstep replications for ``iters`` iterations from x0 = 0, seed 0,
+    the compromise decision and its stratified bound, then the CLI's own
+    certify tail (``cli.certify_replications``): 8 extensive forms of 3000
+    fresh Latin-hypercube scenarios each at tol 1e-5 with their f64
+    continuation, the dual projection, the host LPs, the decision among
+    the compromise and the EF argmins on a shared panel, the winner on an
+    independent one."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.cli import certify_replications
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd.compromise import compromise_decision
+    from sqlp_tpu_torch.sd.driver import SDReplications
+
+    cfg = _flagship_config(iters)
+    dev = torch.device("cuda")
+    R = 8
+    _reset_counts()
+    inst = load_instance("ssn", dtype=cfg.jdtype, device=dev)
+    reps = SDReplications(inst, cfg, n_replications=R,
+                          x0=np.zeros(inst.n1), seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps.run(iters)
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    x_comp, info = compromise_decision(inst, reps.states, reps.especs,
+                                       rho=1.0, qp_config=cfg.qp,
+                                       obj_scale=reps.obj_scale)
+    ub_comp, hw_comp, _ = reps.evaluate_ci(
+        x=x_comp, min_samples=eval_samples, max_samples=eval_samples,
+        seed=20_000, sampling="stratified")
+    comp_s = time.perf_counter() - t1
+    out = certify_replications(reps, x_comp, ub_comp, hw_comp, method="ef",
+                               fresh_scenarios=3000,
+                               eval_samples=eval_samples, seed=0)
+    torch.cuda.synchronize()
+    counts = _counts()
+    rungs = _by_rung()
+    cert = out["cert"]
+    sec = cert["seconds"]
+    tag = "[certify]"
+    log(f"{tag} ssn R={R} x {iters} SD iterations in {sd_s:.2f}s "
+        f"({iters / sd_s:.3f} it/s); compromise and its {eval_samples}-"
+        f"sample stratified bound in {comp_s:.2f}s: {ub_comp:.6f} +- "
+        f"{hw_comp:.4f}")
+    log(f"{tag} certification over {cert['n_scenarios']}-scenario streams "
+        f"in {out['seconds']['certify']:.2f}s: EF {sec['ef']:.2f}s, f64 "
+        f"refine {sec['refine']:.2f}s, projection {sec['projection']:.2f}s,"
+        f" host (corrections, HiGHS) {sec['host']:.2f}s")
+    ef_s = sec["ef"] / max(int(np.max(cert["ef_iters_per_rep"])), 1) * 80
+    log(f"{tag} EF iterations per replication "
+        f"{cert['ef_iters_per_rep'].tolist()} ({1e3 * ef_s:.2f} ms per "
+        f"80-step round of the slowest), f64 refine iterations "
+        f"{cert['refine_iters_per_rep'].tolist()}")
+    for k in ("lb_per_rep", "ef_obj_per_rep", "ef_err_first_per_rep",
+              "ef_err_per_rep", "dual_infeas_per_rep",
+              "cut_correction_per_rep"):
+        log(f"{tag} {k}: " + " ".join(f"{v:.6g}" for v in cert[k]))
+    log(f"{tag} host_exact_count={cert['host_exact_count']}")
+    for name, (mean, hw, moved) in (out["selection"] or {}).items():
+        log(f"{tag} selection {name}: {mean:.6f} +- {hw:.4f} (projected "
+            f"{moved:.3g})")
+    log(f"{tag} selection {out['seconds']['select']:.2f}s, final panel "
+        f"{out['seconds']['final']:.2f}s: decision={out['decision']} ub="
+        f"{out['ub']:.6f} +- {out['ub_hw']:.4f}")
+    log(f"{tag} lb_cert={out['lb_cert']:.6f} (mean {cert['lb_mean']:.6f} "
+        f"hw {cert['lb_half_width']:.6f}) cert_gap={out['cert_gap']:.5f}")
+    log(f"{tag} launches: {json.dumps(counts)}")
+    log(f"{tag} launches by rung: {rungs}")
+    nums = [*cert["lb_per_rep"], *cert["ef_obj_per_rep"],
+            *cert["ef_err_per_rep"], *cert["dual_infeas_per_rep"],
+            *cert["cut_correction_per_rep"], out["lb_cert"], out["ub"],
+            out["ub_hw"], out["cert_gap"], *np.ravel(out["x"])]
+    if not all(math.isfinite(float(v)) for v in nums):
+        raise AssertionError("non-finite certification numbers")
+    if (np.max(cert["ef_err_first_per_rep"]) > CERT_EF_TOL
+            or np.max(cert["ef_err_per_rep"]) > CERT_EF_TOL):
+        raise AssertionError(f"an EF missed tol {CERT_EF_TOL}")
+    if np.max(cert["dual_infeas_per_rep"]) > CERT_DUAL_INFEAS:
+        raise AssertionError(f"dual infeasibility above {CERT_DUAL_INFEAS}")
+    gap = np.abs(cert["lb_per_rep"] - cert["ef_obj_per_rep"])
+    if np.max(gap) > CERT_LB_TO_EF:
+        raise AssertionError(f"a bound is {np.max(gap):.4f} from its EF "
+                             f"objective (limit {CERT_LB_TO_EF})")
+    if not out["lb_cert"] < out["ub"] + out["ub_hw"]:
+        raise AssertionError("lb_cert is not below the decision's ub + hw")
+    _record_launches(results, counts, ("pdhg_halpern_cluster",
+                                       "pdhg_halpern_tile", "admm_round"),
+                     "certify")
+    if any(counts[k] for k in ("pdhg_average_round", "pdhg_average_cluster",
+                               "pdhg_average_tile")):
+        raise AssertionError(f"the certified path launched an average "
+                             f"kernel: {rungs}")
+
+
+_STARTED = []     # every CLI subprocess this script starts
+
+
+def _cli(args):
+    """Start a CLI subprocess of the port from the repo root, its output
+    into temporary files (pipes could fill while another run is waited
+    for); returns (process, stdout file, stderr file)."""
+    import tempfile
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sqlp_tpu_torch", *args], stdout=out,
+        stderr=err, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    _STARTED.append(proc)
+    return proc, out, err
+
+
+def _read(f) -> str:
+    f.seek(0)
+    text = f.read()
+    f.close()
+    return text
+
+
+def _start(tag, runs):
+    """Start a phase's CLI runs ({name: arguments}); returns the function
+    that waits for them, logs each result line and returns {name:
+    (stdout, stderr)}, or raises when a run failed."""
+    t0 = time.perf_counter()
+    procs = {k: _cli(v) for k, v in runs.items()}
+
+    def wait():
+        outs = {k: (p.wait(), _read(o), _read(e))
+                for k, (p, o, e) in procs.items()}
+        failed = []
+        for k, (rc, out, err) in outs.items():
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith(("lb_", "cert_gap", "objective",
+                                       "mc_ub", "decision"))]
+            log(f"[{tag}] {' '.join(runs[k])}: rc={rc} "
+                f"{' | '.join(lines) if rc == 0 else err[-2000:]}")
+            if rc != 0:
+                failed.append(k)
+        log(f"[{tag}] runs ended {time.perf_counter() - t0:.1f}s after "
+            f"their start")
+        if failed:
+            raise AssertionError(f"[{tag}] lands CLI runs failed: {failed}")
+        return {k: (out, err) for k, (_, out, err) in outs.items()}
+    return wait
+
+
+def _lands_saa_optimum(n, seed):
+    """The exact optimum (host HiGHS, f64) of the lands extensive form over
+    the n scenarios that ``python -m sqlp_tpu_torch ef lands --scenarios n
+    --seed seed --device cuda`` draws: the same generator on the same card,
+    the same model in float32. Only the drawn deltas come from the port;
+    the scenarios' right-hand sides and transfer rows are built here in
+    numpy from the instance's arrays."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.models.routines import solve_lp_host
+    from sqlp_tpu_torch.models.scenario import sample_deltas
+
+    dev = torch.device("cuda")
+    inst = load_instance("lands", dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d = sample_deltas(gen, inst.scenario_model, n).double().cpu().numpy()
+    a = {k: getattr(inst.arrays, k).cpu().numpy().astype(
+        np.float64 if k[:6] != "senses" else np.int64) for k in (
+        "c", "A1", "b1", "senses1", "lb1", "ub1", "q", "W", "T", "r",
+        "senses2", "lb2", "ub2")}
+    sm = {k: getattr(inst.scenario_model, k).cpu().numpy()
+          for k in ("rv_row", "rv_col", "rv_is_rhs", "rv_is_cost")}
+    if sm["rv_is_cost"].any():
+        raise AssertionError("lands has no random costs")
+    rhs, tr = sm["rv_is_rhs"], ~sm["rv_is_rhs"]
+    m1, n1 = a["A1"].shape
+    m2, n2 = a["W"].shape
+    A = np.zeros((m1 + n * m2, n1 + n * n2))
+    A[:m1, :n1] = a["A1"]
+    b = [a["b1"]]
+    for k in range(n):
+        rows = slice(m1 + k * m2, m1 + (k + 1) * m2)
+        Tk = a["T"].copy()
+        np.add.at(Tk, (sm["rv_row"][tr], sm["rv_col"][tr]), d[k, tr])
+        rk = a["r"].copy()
+        np.add.at(rk, sm["rv_row"][rhs], d[k, rhs])
+        A[rows, :n1] = Tk
+        A[rows, n1 + k * n2:n1 + (k + 1) * n2] = a["W"]
+        b.append(rk)
+    obj, _, _ = solve_lp_host(
+        np.concatenate([a["c"], np.tile(a["q"] / n, n)]), A,
+        np.concatenate(b),
+        np.concatenate([a["senses1"], np.tile(a["senses2"], n)]),
+        np.concatenate([a["lb1"], np.tile(a["lb2"], n)]),
+        np.concatenate([a["ub1"], np.tile(a["ub2"], n)]))
+    return obj
+
+
+def start_cli_cert():
+    """The lands CLI on the certified path, three processes at once:
+    solve --replications 3 --certify (lb_cert within 6 of the optimum and
+    below the decision's ub + hw), ef over 100 scenarios (converged, its
+    objective at the exact optimum of the same 100 scenarios: a
+    100-scenario sample's own optimum lies several units from the true
+    381.8533, 388.23 in the reference's `ef lands` at seed 0), and solve
+    --x0 crash (lb and ub within 6)."""
+    wait = _start("cli_cert", {
+        "certify": ["solve", "lands", "--replications", "3", "--iters",
+                    "200", "--certify", "--eval-samples", "4096",
+                    "--device", "cuda"],
+        "ef": ["ef", "lands", "--scenarios", "100", "--device", "cuda"],
+        "crash": ["solve", "lands", "--x0", "crash", "--iters", "200",
+                  "--eval-samples", "4096", "--device", "cuda"]})
+
+    def finish():
+        outs = wait()
+        out = outs["certify"][0]
+        m = re.search(r"lb_cert=(\S+) ", out)
+        u = re.search(r"cert_gap=\S+ \(ub (\S+)\+-(\S+),", out)
+        if not (m and u):
+            raise AssertionError("lands --certify printed no lb_cert / "
+                                 "cert_gap")
+        lb_cert = float(m.group(1))
+        ub, hw = float(u.group(1)), float(u.group(2))
+        if not (abs(lb_cert - LANDS_OPT) < 6.0 and lb_cert < ub + hw):
+            raise AssertionError(f"lands lb_cert {lb_cert} not within 6 of "
+                                 f"{LANDS_OPT} or not below ub + hw "
+                                 f"{ub + hw}")
+        out, err = outs["ef"]
+        m = re.search(r"objective=(\S+)", out)
+        exact = _lands_saa_optimum(100, seed=0)
+        log(f"[cli_cert] the 100 scenarios' exact EF optimum (HiGHS): "
+            f"{exact:.6f} ({exact - LANDS_OPT:+.4f} from {LANDS_OPT})")
+        if not (m and "converged=True" in err
+                and abs(float(m.group(1)) - exact) <= 1e-3 * abs(exact)):
+            raise AssertionError("lands EF not converged to its exact "
+                                 "optimum")
+        m = re.search(r"lb_est=(\S+) mc_ub=(\S+)", outs["crash"][0])
+        if not (m and all(abs(float(v) - LANDS_OPT) < 6.0
+                          for v in m.groups())):
+            raise AssertionError("lands from the crash start not within 6")
+    return finish
+
+
+def start_cli():
     # 4096 MC samples keep the upper bound's sampling half-width (about 2
     # on lands) well inside the 6-unit band
-    cmd = [sys.executable, "-m", "sqlp_tpu_torch", "solve", "lands",
-           "--iters", "200", "--device", "cuda", "--eval-samples", "4096"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    dt = time.perf_counter() - t0
-    m = re.search(r"lb_est=(\S+) mc_ub=(\S+)", proc.stdout)
-    log(f"[cli] {' '.join(cmd[1:])}: rc={proc.returncode} in {dt:.1f}s "
-        f"{m.group(0) if m else proc.stderr[-2000:]}")
-    if proc.returncode != 0 or m is None:
-        raise AssertionError("lands CLI run failed")
-    lb, ub = float(m.group(1)), float(m.group(2))
-    if abs(lb - LANDS_OPT) >= 6.0 or abs(ub - LANDS_OPT) >= 6.0:
-        raise AssertionError(f"lands bounds lb={lb} ub={ub} not within 6 of "
-                             f"{LANDS_OPT}")
+    wait = _start("cli", {"solve": [
+        "solve", "lands", "--iters", "200", "--device", "cuda",
+        "--eval-samples", "4096"]})
+
+    def finish():
+        m = re.search(r"lb_est=(\S+) mc_ub=(\S+)", wait()["solve"][0])
+        if m is None:
+            raise AssertionError("lands CLI run printed no bounds")
+        lb, ub = float(m.group(1)), float(m.group(2))
+        if abs(lb - LANDS_OPT) >= 6.0 or abs(ub - LANDS_OPT) >= 6.0:
+            raise AssertionError(f"lands bounds lb={lb} ub={ub} not within "
+                                 f"6 of {LANDS_OPT}")
+    return finish
 
 
-def phase_cli_rep():
-    cmd = [sys.executable, "-m", "sqlp_tpu_torch", "solve", "lands",
-           "--replications", "3", "--iters", "200", "--eval-samples", "4096",
-           "--device", "cuda"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    dt = time.perf_counter() - t0
-    m = re.search(r"mc_ub_compromise=(\S+) mc_ub_average=(\S+)",
-                  proc.stdout)
-    log(f"[cli_rep] {' '.join(cmd[1:])}: rc={proc.returncode} in {dt:.1f}s "
-        f"{m.group(0) if m else proc.stderr[-2000:]}")
-    if proc.returncode != 0 or m is None:
-        raise AssertionError("lands replicated CLI run failed")
-    ub = float(m.group(1))
-    if not abs(ub - LANDS_OPT) < 6.0:
-        raise AssertionError(f"lands compromise bound {ub} not within 6 of "
-                             f"{LANDS_OPT}")
+def start_cli_rep():
+    wait = _start("cli_rep", {"solve": [
+        "solve", "lands", "--replications", "3", "--iters", "200",
+        "--eval-samples", "4096", "--device", "cuda"]})
+
+    def finish():
+        m = re.search(r"mc_ub_compromise=(\S+) mc_ub_average=(\S+)",
+                      wait()["solve"][0])
+        if m is None:
+            raise AssertionError("lands replicated CLI run printed no bound")
+        ub = float(m.group(1))
+        if not abs(ub - LANDS_OPT) < 6.0:
+            raise AssertionError(f"lands compromise bound {ub} not within 6 "
+                                 f"of {LANDS_OPT}")
+    return finish
+
+
+# the CLI phases start their subprocesses when they are reached and are
+# waited for together, before the next phase that uses the card in this
+# process (or at the end): the lands runs are host-bound and overlap
+CLI_PHASES = {"cli": start_cli, "cli_rep": start_cli_rep,
+              "cli_cert": start_cli_cert}
+
+
+def run_phase(ph, args, results, memo):
+    """One phase that uses the card in this process; ``memo`` carries the
+    main path's seeded bounds to ``main2``."""
+    tp = time.perf_counter()
+    if ph == "device":
+        phase_device()
+    elif ph in _PDHG_PHASES:
+        phase_pdhg(results, ph)
+    elif ph == "b3":
+        phase_b3(results)
+    elif ph == "sweep":
+        phase_sweep()
+    elif ph == "profile":
+        phase_profile("main", 100)
+        phase_profile("replicated", 20)
+    elif ph == "main":
+        memo["main"] = phase_main(results, args.iters, gate=True)
+    elif ph == "main2":
+        # the same seeded run again: the bounds must repeat bitwise
+        again = phase_main(results, args.iters, path="main2")
+        first = memo.get("main")
+        log(f"[main2] lb_est, mc_ub equal to the first run: "
+            f"{again == first}")
+        if again != first:
+            raise AssertionError(f"seeded main path not deterministic: "
+                                 f"{first} then {again}")
+    elif ph == "replicated":
+        phase_replicated(results, args.rep_iters)
+    elif ph == "small":
+        phase_small(results)
+    elif ph == "certify":
+        phase_certify(results, args.cert_iters, args.cert_eval_samples)
+    elif ph == "profile_ef":
+        phase_profile_ef()
+    else:
+        raise ValueError(f"unknown phase {ph}")
+    log(f"[{ph}] phase done in {time.perf_counter() - tp:.1f}s")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--iters", type=int, default=300,
+    ap.add_argument("--iters", type=int, default=200,
                     help="SD iterations of the ssn main path")
-    ap.add_argument("--rep-iters", type=int, default=100,
+    ap.add_argument("--rep-iters", type=int, default=60,
                     help="SD iterations of the replicated path")
+    ap.add_argument("--cert-iters", type=int, default=100,
+                    help="SD iterations of the certified path")
+    ap.add_argument("--cert-eval-samples", type=int, default=16384,
+                    help="samples of the certified path's MC panels")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "cli,cli_rep")
+                    "certify,cli,cli_rep,cli_cert")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1019,41 +1381,29 @@ def main() -> int:
                    ("pdhg_average_tile", average),
                    ("admm_round", "sqlp_tpu/ops/pallas/admm_kernel.py:95"))}
     t0 = time.perf_counter()
-    first = None
-    for ph in phases:
-        tp = time.perf_counter()
-        if ph == "device":
-            phase_device()
-        elif ph in _PDHG_PHASES:
-            phase_pdhg(results, ph)
-        elif ph == "b3":
-            phase_b3(results)
-        elif ph == "sweep":
-            phase_sweep()
-        elif ph == "profile":
-            phase_profile("main", 100)
-            phase_profile("replicated", 20)
-        elif ph == "main":
-            first = phase_main(results, args.iters, gate=True)
-        elif ph == "main2":
-            # the same seeded run again: the bounds must repeat bitwise
-            again = phase_main(results, args.iters)
-            log(f"[main2] lb_est, mc_ub equal to the first run: "
-                f"{again == first}")
-            if again != first:
-                raise AssertionError(f"seeded main path not deterministic: "
-                                     f"{first} then {again}")
-        elif ph == "replicated":
-            phase_replicated(results, args.rep_iters)
-        elif ph == "small":
-            phase_small(results)
-        elif ph == "cli":
-            phase_cli()
-        elif ph == "cli_rep":
-            phase_cli_rep()
-        else:
-            raise ValueError(f"unknown phase {ph}")
-        log(f"[{ph}] phase done in {time.perf_counter() - tp:.1f}s")
+    pending = []
+    memo = {}
+
+    def join():
+        for ph, tp, finish in pending:
+            finish()
+            log(f"[{ph}] phase done in {time.perf_counter() - tp:.1f}s "
+                f"(beside the other CLI phases)")
+        pending.clear()
+
+    try:
+        for ph in phases:
+            if ph in CLI_PHASES:
+                pending.append((ph, time.perf_counter(), CLI_PHASES[ph]()))
+            else:
+                join()
+                run_phase(ph, args, results, memo)
+        join()
+    finally:
+        for proc in _STARTED:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     log(f"[total] {time.perf_counter() - t0:.1f}s")
     for entry in results.values():
         entry.setdefault("library_ms", None)

@@ -1,6 +1,5 @@
-// Reflected-Halpern PDHG round for large batches: tiles of batch rows on
-// the tensor cores, K resident in a thread-block cluster's shared memory
-// (Hopper, sm_90a).
+// Reflected-Halpern PDHG round for large batches: tiles of batch rows, K
+// resident in a thread-block cluster's shared memory (Hopper, sm_90a).
 //
 // Replaces: sqlp_tpu/ops/pallas/pdhg_kernel.py, pdhg_round_pallas_halpern
 // (body _kernel_halpern) in its large-panel regime (the Monte-Carlo
@@ -14,8 +13,8 @@
 // scalar FMAs. The TPU kernel kept K in VMEM and ran the products on the
 // matrix unit as three bf16 passes; pdhg_tile.cuh keeps K's column slices
 // in a cluster's shared memory, carries 16 rows per tile and runs
-// the products as mma.sync instructions (3xTF32 in float32, FP64 in
-// float64), and says how. This file instantiates it for the Halpern
+// the products as FP64 mma.sync instructions in float64 and as FP32 FMAs
+// in float32, and says how. This file instantiates it for the Halpern
 // scheme.
 
 #include "pdhg_tile.cuh"
@@ -25,7 +24,7 @@ namespace {
 using pdhg_tile::Args;
 
 template <typename T>
-int run(int C, int arith, int nclusters, const void* K, const void* q,
+int run(int C, int nclusters, const void* K, const void* q,
         int q_per_row, const void* lb, const void* ub, const void* is_eq,
         const void* ht, const void* tau, const void* sig, const void* Y,
         const void* L, const void* kh, const void* Yanc, const void* Lanc,
@@ -34,17 +33,16 @@ int run(int C, int arith, int nclusters, const void* K, const void* q,
   const Args a = {K,   q,  q_per_row, lb,   ub,   is_eq, ht,   tau,
                   sig, Y,  L,         kh,   Yanc, Lanc,  Yout, Lout,
                   Ycand, Lcand, B,    m,    n,    n_inner, stream};
-  return pdhg_tile::launch<T, false>(C, arith, nclusters, a, nullptr);
+  return pdhg_tile::launch<T, false>(C, nclusters, a, nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
-// one round on nclusters persistent clusters of C CTAs, the products by
-// arith (pdhg_tile.cuh: 0 matrix instructions, 1 FP32 FMAs); returns
+// one round on nclusters persistent clusters of C CTAs; returns
 // cudaError_t
-int pdhg_halpern_tile_f32(int C, int arith, int nclusters, const void* K,
+int pdhg_halpern_tile_f32(int C, int nclusters, const void* K,
                           const void* q, int q_per_row, const void* lb,
                           const void* ub, const void* is_eq, const void* ht,
                           const void* tau, const void* sig, const void* Y,
@@ -52,12 +50,12 @@ int pdhg_halpern_tile_f32(int C, int arith, int nclusters, const void* K,
                           const void* Lanc, void* Yout, void* Lout,
                           void* Ycand, void* Lcand, int B, int m, int n,
                           int n_inner, void* stream) {
-  return run<float>(C, arith, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
+  return run<float>(C, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
                     tau, sig, Y, L, kh, Yanc, Lanc, Yout, Lout, Ycand, Lcand,
                     B, m, n, n_inner, stream);
 }
 
-int pdhg_halpern_tile_f64(int C, int arith, int nclusters, const void* K,
+int pdhg_halpern_tile_f64(int C, int nclusters, const void* K,
                           const void* q, int q_per_row, const void* lb,
                           const void* ub, const void* is_eq, const void* ht,
                           const void* tau, const void* sig, const void* Y,
@@ -65,16 +63,16 @@ int pdhg_halpern_tile_f64(int C, int arith, int nclusters, const void* K,
                           const void* Lanc, void* Yout, void* Lout,
                           void* Ycand, void* Lcand, int B, int m, int n,
                           int n_inner, void* stream) {
-  return run<double>(C, arith, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
+  return run<double>(C, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
                      tau, sig, Y, L, kh, Yanc, Lanc, Yout, Lout, Ycand,
                      Lcand, B, m, n, n_inner, stream);
 }
 
 // cudaOccupancyMaxActiveClusters for that launch, into *out; nothing is
 // launched
-int pdhg_halpern_tile_occupancy(int f64, int C, int arith, int m, int n,
+int pdhg_halpern_tile_occupancy(int f64, int C, int m, int n,
                                 int* out) {
-  return pdhg_tile::occupancy<false>(f64, C, arith, m, n, out);
+  return pdhg_tile::occupancy<false>(f64, C, m, n, out);
 }
 
 

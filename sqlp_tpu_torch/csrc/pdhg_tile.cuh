@@ -1,6 +1,6 @@
 // PDHG round for large batches, both restart schemes: tiles of TM = 16
-// batch rows on the tensor cores, K resident in the shared memory of a
-// thread-block cluster that walks the tiles in turn (Hopper, sm_90a).
+// batch rows, K resident in the shared memory of a thread-block cluster
+// that walks the tiles in turn (Hopper, sm_90a).
 // Instantiated by pdhg_halpern_tile.cu (reflected Halpern, AVG = false) and
 // pdhg_average_tile.cu (restart to the average, AVG = true); the step's
 // two products are written once here, so both schemes reduce in the same
@@ -10,7 +10,7 @@
 // rows and reads K twice per step from L2, so at B = 4096 a thousand
 // blocks draw about 1 GB per step through L2, and the products are scalar
 // FMAs. This design reads K from device memory once per launch and runs
-// the products as matrix instructions:
+// the products on 16-row tiles (float64 as matrix instructions):
 //
 // - K resident: a cluster of C CTAs; CTA c owns the column slice
 //   [c nc, (c+1) nc) of K and keeps it in its shared memory for the whole
@@ -39,31 +39,22 @@
 //   stall the sender; loads through a mapped generic pointer were measured
 //   at a full round trip each, one after the other.
 // - Arithmetic: float64 on mma.sync.m16n8k8.f64 (full IEEE; measured at
-//   twice the rate of four m8n8k4 on the H100). float32 as 3xTF32 on
-//   mma.sync.m16n8k8: each operand is split into a TF32 head and a TF32
-//   tail (x - head, exact in float32), and the product is tail x head +
-//   head x tail + head x head accumulated in float32; the dropped tail x
-//   tail term is 2^-22 of the product. One TF32 pass alone would keep 10
-//   bits and change the answers. The head term's 8-k sums leave the
-//   instruction and are added in FP32 (round to nearest): summed inside,
-//   the accumulator truncates, and the Monte-Carlo panels took 9 % more
-//   rounds than the row-block kernel instead of 3 % fewer. Both types see
-//   one 16 x 8 x 8 warp product with the same fragment layout. A second
-//   float32 arithmetic, scalar FP32 FMAs on the same tiles (kFma, twice
-//   the time), is the exact-FP32 partner that the smoke test holds 3xTF32
-//   against over whole solves.
-// - In the inner loop every load, split and register move competes with
-//   the matrix instructions for dispatch (measured: the loop's time is the
-//   sum of both), so the operands are laid out to need few. L and Yb are
+//   twice the rate of four m8n8k4 on the H100). float32 as scalar FP32
+//   FMAs on the same tiles and output fragments, summed in blocks of 8 k
+//   as the float64 instruction sums them. 3xTF32 matrix instructions took
+//   half the time, but their operands keep about 22 of float32's 24 bits:
+//   at one decision of the main path the Monte-Carlo panels took 11.9 %
+//   more rounds than under the row-block kernel's FP32 FMAs (the FMA tiles
+//   0.2 %), so they were taken out.
+// - In the inner loop every load and register move competes with the
+//   matrix instructions for dispatch (measured: the loop's time is the sum
+//   of both), so the operands are laid out to need few. L and Yb are
 //   stored in the order the instruction's A fragment wants them (16 x 8
-//   blocks, a lane's four values adjacent: one 16-byte load per fragment
-//   and no register shuffling), already split into head and tail planes by
-//   the one thread that produced the value, not by each of the warps that
-//   consume it. K
-//   is stored in 8 x 8 blocks whose order serves both products (an 8-byte
-//   load per B fragment in the primal product, two conflict-free 4-byte
-//   loads in the dual one) and is split where it is read: each element is
-//   read by one warp per product, and a second copy would not fit.
+//   blocks, a lane's four values adjacent: one contiguous load per
+//   fragment and no register shuffling). K is stored in 8 x 8 blocks
+//   whose order serves both products (one load of two adjacent elements
+//   per B fragment in the primal product, two single elements in the dual
+//   one).
 //
 // Rows past B in the ragged last tile run on zeros and are never written
 // back. Candidates and averages are written from the last step's
@@ -89,26 +80,15 @@ constexpr size_t kSmemMax = 227 * 1024;
 // batch rows of a tile: one 16-row matrix-instruction tile on every warp
 constexpr int kTM = 16;
 
-// How the step's two products are computed. kMma: matrix instructions,
-// float64 as it is, float32 as 3xTF32. kFma (float32 only): the same
-// tiles, operands and output fragments with scalar FP32 FMAs, summed in
-// the same blocks of 8 k; the exact-FP32 partner 3xTF32 is held against.
-enum : int { kMma = 0, kFma = 1 };
-
-// planes a stored operand of L or Yb takes: TF32 head and tail for 3xTF32
-template <typename T, int ARITH>
-constexpr int kPlanesOf = (sizeof(T) == 4 && ARITH != kFma) ? 2 : 1;
-
 // offsets, in elements, of a CTA's shared-memory regions (mirrored by
 // ops/cuda/pdhg_kernel.py:_tile_smem); every region is a multiple of 4
 // elements long
 struct Layout {
   int nc, ncp, mp, ys, mc;
-  size_t Ks, Lf, Rx, Yb, Yc, Ya, Lo, La, hs, lbs, ubs, qs, rows, total;
+  size_t Ks, Lf, Rx, Yb, Yc, Ya, La, hs, lbs, ubs, qs, rows, total;
 };
 
-__host__ __device__ inline Layout layout(int C, int TM, int m, int n,
-                                         int nplanes) {
+__host__ __device__ inline Layout layout(int C, int TM, int m, int n) {
   Layout l;
   l.nc = (n + C - 1) / C;        // columns a CTA owns
   l.ncp = (l.nc + 7) / 8 * 8;    // padded to whole blocks of 8
@@ -117,13 +97,11 @@ __host__ __device__ inline Layout layout(int C, int TM, int m, int n,
   l.mc = (l.mp / 8 + C - 1) / C * 8;      // constraint rows a CTA owns
   size_t o = 0;
   l.Ks = o;   o += static_cast<size_t>(l.ncp) * l.mp;   // 8 x 8 blocks
-  l.Lf = o;   o += static_cast<size_t>(TM) * l.mp * nplanes;   // A blocks
+  l.Lf = o;   o += static_cast<size_t>(TM) * l.mp;       // A blocks
   l.Rx = o;   o += static_cast<size_t>(C) * TM * l.mc;  // [C][TM][mc] shares
-  l.Yb = o;   o += static_cast<size_t>(TM) * l.ncp * nplanes;  // A blocks
+  l.Yb = o;   o += static_cast<size_t>(TM) * l.ncp;      // A blocks
   l.Yc = o;   o += static_cast<size_t>(TM) * l.ys;      // [TM][ys] Y
   l.Ya = o;   o += static_cast<size_t>(TM) * l.ys;      // anchor | sum
-  // the owned rows' exact L; in float64 the copy in Lf is exact already
-  l.Lo = o;   o += nplanes > 1 ? static_cast<size_t>(TM) * l.mc : 0;
   l.La = o;   o += static_cast<size_t>(TM) * l.mc;      // [TM][mc] anchor|sum
   l.hs = o;   o += static_cast<size_t>(TM) * l.mc;      // [TM][mc] rhs
   l.lbs = o;  o += l.ncp;
@@ -135,13 +113,12 @@ __host__ __device__ inline Layout layout(int C, int TM, int m, int n,
 }
 
 // Where element (r, k) of a [TM, 8 ksteps] operand of the A side lives, in
-// elements from the buffer's start, plane 0 (plane p: + 128 p): 16 x 8
-// blocks in (row block, k step) order, each P (planes) x 128 elements; in a
-// block the four values of lane 4 (r % 8) + k % 4 are adjacent, in the
-// order of the instruction's A registers.
-template <int P>
+// elements from the buffer's start: 16 x 8 blocks of 128 elements in
+// (row block, k step) order; in a block the four values of lane
+// 4 (r % 8) + k % 4 are adjacent, in the order of the instruction's A
+// registers.
 __device__ __forceinline__ int a_offset(int r, int k, int ksteps) {
-  return (((r >> 4) * ksteps + (k >> 3)) * P) * 128 +
+  return ((r >> 4) * ksteps + (k >> 3)) * 128 +
          ((((r & 7) << 2) + (k & 3)) << 2) + (((k >> 2) & 1) << 1) +
          ((r >> 3) & 1);
 }
@@ -152,18 +129,6 @@ __device__ __forceinline__ int a_offset(int r, int k, int ksteps) {
 __device__ __forceinline__ int k_offset(int i, int j, int iblocks) {
   return ((j >> 3) * iblocks + (i >> 3)) * 64 +
          ((((j & 7) << 2) + (i & 3)) << 1) + ((i >> 2) & 1);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// The same rounding (to nearest, ties away) for a finite value, as an add
-// and a mask; cvt.rna adds a guard for Inf and NaN that K never needs.
-__device__ __forceinline__ uint32_t to_tf32_finite(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // The address, in the cluster's shared window, of this CTA's shared
@@ -194,16 +159,6 @@ __device__ __forceinline__ void st_cluster2(uint32_t addr, double a,
                :: "r"(addr), "d"(a), "d"(b) : "memory");
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void mma_f64(double (&c)[4],
                                         const double (&a)[4],
                                         const double (&b)[2]) {
@@ -214,115 +169,22 @@ __device__ __forceinline__ void mma_f64(double (&c)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// Store x at element `at` of an A-side buffer of P planes, split into a
-// TF32 head and tail where P = 2. L and Yb may hold NaN after a diverged
-// solve, so this is the guarded cvt.
-template <int P>
-__device__ __forceinline__ void store_a(float* buf, int at, float x) {
-  if constexpr (P == 2) {
-    const float hi = __uint_as_float(to_tf32(x));
-    buf[at] = hi;
-    buf[at + 128] = __uint_as_float(to_tf32(x - hi));
-  } else {
-    buf[at] = x;
-  }
-}
-template <int P>
-__device__ __forceinline__ void store_a(double* buf, int at, double x) {
-  buf[at] = x;
-}
-// the same store into every CTA of the cluster, this one included
-template <int P>
-__device__ __forceinline__ void store_a_all(float* buf, int at, float x,
-                                            int C) {
-  if constexpr (P == 2) {
-    const float hi = __uint_as_float(to_tf32(x));
-    const float lo = __uint_as_float(to_tf32(x - hi));
-    for (int c = 0; c < C; ++c) {
-      const uint32_t addr = cluster_addr(buf + at, c);
-      st_cluster(addr, hi);
-      st_cluster(addr + 128 * sizeof(float), lo);
-    }
-  } else {
-    for (int c = 0; c < C; ++c) st_cluster(cluster_addr(buf + at, c), x);
-  }
-}
-template <int P>
-__device__ __forceinline__ void store_a_all(double* buf, int at, double x,
-                                            int C) {
+// Store x at element `at` of every CTA's copy of an A-side buffer, this
+// CTA's included
+template <typename T>
+__device__ __forceinline__ void store_a_all(T* buf, int at, T x, int C) {
   for (int c = 0; c < C; ++c) st_cluster(cluster_addr(buf + at, c), x);
 }
 
-// A and B operands of one lane, ready for the matrix instruction: float32
-// as TF32 head and tail, float64 as it is
-template <typename T>
-struct FragA;
-template <>
-struct FragA<float> {
-  uint32_t hi[4], lo[4];
-  // blk: the 16 x 8 block's plane 0; one 16-byte load per plane
-  __device__ __forceinline__ void load(const float* blk, int lane) {
-    const uint4 h = *reinterpret_cast<const uint4*>(blk + 4 * lane);
-    const uint4 l = *reinterpret_cast<const uint4*>(blk + 128 + 4 * lane);
-    hi[0] = h.x; hi[1] = h.y; hi[2] = h.z; hi[3] = h.w;
-    lo[0] = l.x; lo[1] = l.y; lo[2] = l.z; lo[3] = l.w;
-  }
-};
-template <>
-struct FragA<double> {
-  double v[4];
-  __device__ __forceinline__ void load(const double* blk, int lane) {
-    const double2 u = *reinterpret_cast<const double2*>(blk + 4 * lane);
-    const double2 w = *reinterpret_cast<const double2*>(blk + 4 * lane + 2);
-    v[0] = u.x; v[1] = u.y; v[2] = w.x; v[3] = w.y;
-  }
-};
-
-template <typename T>
-struct FragB;
-template <>
-struct FragB<float> {
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    hi[0] = to_tf32_finite(b0);
-    hi[1] = to_tf32_finite(b1);
-    lo[0] = to_tf32_finite(b0 - __uint_as_float(hi[0]));
-    lo[1] = to_tf32_finite(b1 - __uint_as_float(hi[1]));
-  }
-};
-template <>
-struct FragB<double> {
-  double v[2];
-  __device__ __forceinline__ void set(double b0, double b1) {
-    v[0] = b0;
-    v[1] = b1;
-  }
-};
-
 // The accumulator of one 16 x 8 output tile; with g = lane / 4 and tig =
 // lane % 4 a lane holds (g, 2 tig) (g, 2 tig + 1) (g + 8, 2 tig) (g + 8,
-// 2 tig + 1). One sum for float64 and for the FMA product; 3xTF32 keeps
-// its three terms in sums of their own, so that no matrix instruction of
-// a step waits on another, and value() adds them, always in the same
-// order.
-template <typename T, int ARITH>
+// 2 tig + 1), under either type.
+template <typename T>
 struct Acc {
   T v[4];
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int c = 0; c < 4; ++c) v[c] = T(0);
-  }
-  __device__ __forceinline__ T value(int c) const { return v[c]; }
-};
-template <>
-struct Acc<float, kMma> {
-  float hh[4], hl[4], lh[4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) hh[c] = hl[c] = lh[c] = 0.f;
-  }
-  __device__ __forceinline__ float value(int c) const {
-    return (hl[c] + lh[c]) + hh[c];
   }
 };
 
@@ -331,78 +193,44 @@ struct Acc<float, kMma> {
 // instructions
 constexpr int kNTW = 2;
 
-// acc[nt] += a b[nt], each one 16 x 8 x 8 warp product. A lane holds, for
-// both types,
+// float64: acc[nt] += A[0 .. 16, 0 .. 8 ksteps) Bt[:, 8 nt .. 8 nt + 8),
+// each k step one 16 x 8 x 8 warp product per column tile. A lane holds
 //   a: (g, tig) (g + 8, tig) (g, tig + 4) (g + 8, tig + 4)   [row, k]
 //   b: (tig, g) (tig + 4, g)                                 [k, column]
-// float32 runs each term for all tiles in turn; consecutive instructions
-// then share their A registers. The head term's sum over the k steps is
-// taken outside the instruction: its accumulator adds with truncation, an
-// FP32 add rounds to nearest, and the few rows of a panel that converge
-// near float32's limit take measurably more rounds under the former. The
-// two tail terms are 2^-11 of the head and stay in the accumulator.
-__device__ __forceinline__ void mma_all(Acc<float, kMma> (&acc)[kNTW],
-                                        const FragA<float>& a,
-                                        const FragB<float> (&b)[kNTW]) {
-  float hh[kNTW][4];
-#pragma unroll
-  for (int nt = 0; nt < kNTW; ++nt) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) hh[nt][c] = 0.f;
-    mma_tf32(hh[nt], a.hi, b[nt].hi);
-  }
-#pragma unroll
-  for (int nt = 0; nt < kNTW; ++nt) mma_tf32(acc[nt].hl, a.hi, b[nt].lo);
-#pragma unroll
-  for (int nt = 0; nt < kNTW; ++nt) mma_tf32(acc[nt].lh, a.lo, b[nt].hi);
-#pragma unroll
-  for (int nt = 0; nt < kNTW; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[nt].hh[c] += hh[nt][c];
-}
-template <int ARITH>
-__device__ __forceinline__ void mma_all(Acc<double, ARITH> (&acc)[kNTW],
-                                        const FragA<double>& a,
-                                        const FragB<double> (&b)[kNTW]) {
-#pragma unroll
-  for (int nt = 0; nt < kNTW; ++nt) mma_f64(acc[nt].v, a.v, b[nt].v);
-}
-
-// acc[nt] += A[0 .. 16, 0 .. 8 ksteps) Bt[:, 8 nt .. 8 nt + 8). As: the
-// A-side buffer (a_offset order). Bs: K's block of the first column tile
-// and k step 0; b_nt and b_ks elements further lie the next column tile
-// and the next k step. PRIMAL: the product reduces over K's rows (a lane's
-// two values adjacent), else over its columns. Column tiles past ntiles
-// are skipped. The next step's operands are read before this step's
-// instructions start.
-template <typename T, int ARITH, bool PRIMAL>
-__device__ __forceinline__ void tile_product(const T* As, const T* Bs,
-                                             int b_nt, int b_ks, int ntiles,
+// As: the A-side buffer (a_offset order). Bs: K's block of the first
+// column tile and k step 0; b_nt and b_ks elements further lie the next
+// column tile and the next k step. PRIMAL: the product reduces over K's
+// rows (a lane's two values adjacent), else over its columns. Column tiles
+// past ntiles are skipped. The next step's operands are read before this
+// step's instructions start.
+template <bool PRIMAL>
+__device__ __forceinline__ void tile_product(const double* As,
+                                             const double* Bs, int b_nt,
+                                             int b_ks, int ntiles,
                                              int ksteps, int lane,
-                                             Acc<T, ARITH> (&acc)[kNTW]) {
-  constexpr int kBlock = 128 * kPlanesOf<T, ARITH>;
+                                             Acc<double> (&acc)[kNTW]) {
   const int b_at = PRIMAL ? 2 * lane
                           : ((((lane & 3) << 2) + ((lane >> 2) & 3)) << 1) +
                                 (lane >> 4);
   // two operand sets in turn, so that no set is copied
-  auto read = [&](int ks, FragA<T>& a, T (&b)[kNTW][2]) {
+  auto read = [&](int ks, double (&a)[4], double (&b)[kNTW][2]) {
 #pragma unroll
     for (int nt = 0; nt < kNTW; ++nt) {
-      const T* Bb = Bs + nt * b_nt + ks * b_ks + b_at;
+      const double* Bb = Bs + nt * b_nt + ks * b_ks + b_at;
       const bool ok = nt < ntiles;
-      b[nt][0] = ok ? Bb[0] : T(0);
-      b[nt][1] = ok ? Bb[PRIMAL ? 1 : 32] : T(0);
+      b[nt][0] = ok ? Bb[0] : 0.0;
+      b[nt][1] = ok ? Bb[PRIMAL ? 1 : 32] : 0.0;
     }
-    a.load(As + ks * kBlock, lane);
+    const double* blk = As + ks * 128 + 4 * lane;   // a lane's 4 adjacent
+    const double2 u = *reinterpret_cast<const double2*>(blk);
+    const double2 w = *reinterpret_cast<const double2*>(blk + 2);
+    a[0] = u.x; a[1] = u.y; a[2] = w.x; a[3] = w.y;
   };
-  auto step = [&](const FragA<T>& a, const T (&braw)[kNTW][2]) {
-    FragB<T> b[kNTW];
+  auto step = [&](const double (&a)[4], const double (&b)[kNTW][2]) {
 #pragma unroll
-    for (int nt = 0; nt < kNTW; ++nt) b[nt].set(braw[nt][0], braw[nt][1]);
-    mma_all(acc, a, b);
+    for (int nt = 0; nt < kNTW; ++nt) mma_f64(acc[nt].v, a, b[nt]);
   };
-  FragA<T> a0, a1;
-  T b0[kNTW][2], b1[kNTW][2];
+  double a0[4], a1[4], b0[kNTW][2], b1[kNTW][2];
   read(0, a0, b0);
   for (int ks = 0; ks < ksteps; ks += 2) {
     const bool odd = ks + 1 < ksteps;
@@ -415,10 +243,10 @@ __device__ __forceinline__ void tile_product(const T* As, const T* Bs,
   }
 }
 
-// The same product with scalar FP32 FMAs, on the same operands (one
-// plane, exact) and into the same output fragment: a lane sums its 2 rows
+// float32: the same product with scalar FP32 FMAs, on the same operands
+// and into the same output fragment: a lane sums its 2 rows
 // by 2 columns of each tile over a block of 8 k in ascending order and adds
-// the block's sum to the running one, as the matrix instructions do. Per
+// the block's sum to the running one, as the float64 instruction does. Per
 // block it reads its two rows of A as four 16-byte loads (a_offset keeps (g, k)
 // (g + 8, k) (g, k + 4) (g + 8, k + 4) adjacent) and its columns of K from
 // the block's k_offset order: 8 adjacent values per column in the primal
@@ -426,7 +254,7 @@ __device__ __forceinline__ void tile_product(const T* As, const T* Bs,
 template <bool PRIMAL>
 __device__ __forceinline__ void tile_product_fma(
     const float* As, const float* Bs, int b_nt, int b_ks, int ntiles,
-    int ksteps, int lane, Acc<float, kFma> (&acc)[kNTW]) {
+    int ksteps, int lane, Acc<float> (&acc)[kNTW]) {
   const int g = lane >> 2;
   const int tig = lane & 3;
   for (int ks = 0; ks < ksteps; ++ks) {
@@ -472,7 +300,7 @@ __device__ __forceinline__ void tile_product_fma(
   }
 }
 
-template <typename T, bool AVG, int ARITH>
+template <typename T, bool AVG>
 __global__ void __launch_bounds__(kThreads, 1)
 pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
                  int q_per_row, const T* __restrict__ lb,
@@ -485,12 +313,11 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
                  T* __restrict__ Yout2, T* __restrict__ Lout2, int B, int m,
                  int n, int n_inner, int C) {
   constexpr int TM = kTM;
-  constexpr int kPlanes = kPlanesOf<T, ARITH>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int cid = blockIdx.x / C;
   const int nclusters = gridDim.x / C;
-  const Layout lay = layout(C, TM, m, n, kPlanes);
+  const Layout lay = layout(C, TM, m, n);
   const int ncp = lay.ncp, mp = lay.mp, ys = lay.ys, mc = lay.mc;
   const int nit = mp / 8;                             // row blocks of K
   const int njt = ncp / 8;                            // column blocks
@@ -523,7 +350,6 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
   T* Yb = smem + lay.Yb;
   T* Yc = smem + lay.Yc;
   T* Ya = smem + lay.Ya;
-  T* Lo = smem + lay.Lo;
   T* La = smem + lay.La;
   T* hs = smem + lay.hs;
   T* lbs = smem + lay.lbs;
@@ -557,11 +383,11 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
     for (int idx = tid; idx < TM * mp; idx += kThreads) {
       const int r = idx / mp;
       const int i = idx - r * mp;
-      store_a<kPlanes>(Lf, a_offset<kPlanes>(r, i, nit),
-              (r < nrows && i < m)
-                  ? L0[static_cast<size_t>(row0 + r) * m + i] : T(0));
+      Lf[a_offset(r, i, nit)] =
+          (r < nrows && i < m) ? L0[static_cast<size_t>(row0 + r) * m + i]
+                               : T(0);
     }
-    for (int idx = tid; idx < TM * ncp * kPlanes; idx += kThreads)
+    for (int idx = tid; idx < TM * ncp; idx += kThreads)
       Yb[idx] = T(0);
     for (int idx = tid; idx < TM * ys; idx += kThreads) {
       const int r = idx / ys;
@@ -581,7 +407,6 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
       const bool ok = r < nrows && i < m;
       const size_t gi = static_cast<size_t>(row0 + r) * m + i;
       hs[idx] = ok ? ht[gi] : T(0);
-      if constexpr (kPlanes > 1) Lo[idx] = ok ? L0[gi] : T(0);
       if constexpr (AVG) {
         La[idx] = T(0);
       } else {
@@ -605,15 +430,15 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
       const T* wt = ws + (t & 1) * TM;     // the step's Halpern weights
       // primal step of the owned columns: a warp per kNTW column tiles
       for (int nt0 = warp * kNTW; nt0 < njt; nt0 += kWarps * kNTW) {
-        Acc<T, ARITH> acc[kNTW];
+        Acc<T> acc[kNTW];
 #pragma unroll
         for (int nt = 0; nt < kNTW; ++nt) acc[nt].zero();
-        if constexpr (ARITH == kFma) {
+        if constexpr (sizeof(T) == 4) {
           tile_product_fma<true>(Lf, Ks + nt0 * nit * 64, nit * 64, 64,
                                  njt - nt0, nit, lane, acc);
         } else {
-          tile_product<T, ARITH, true>(Lf, Ks + nt0 * nit * 64, nit * 64, 64,
-                                       njt - nt0, nit, lane, acc);
+          tile_product<true>(Lf, Ks + nt0 * nit * 64, nit * 64, 64,
+                             njt - nt0, nit, lane, acc);
         }
 #pragma unroll
         for (int nt = 0; nt < kNTW; ++nt) {
@@ -626,10 +451,10 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
               const size_t gi = static_cast<size_t>(row0 + r) * n + c0 + jl;
               const T qj = q_per_row ? (live ? q[gi] : T(0)) : qs[jl];
               const T y = Yc[r * ys + jl];
-              const T y1 = clip(y - taus[r] * (qj - acc[nt].value(c)),
+              const T y1 = clip(y - taus[r] * (qj - acc[nt].v[c]),
                                 lbs[jl], ubs[jl]);
               const T yb = T(2) * y1 - y;
-              store_a<kPlanes>(Yb, a_offset<kPlanes>(r, jl, njt), yb);
+              Yb[a_offset(r, jl, njt)] = yb;
               if constexpr (AVG) {
                 const T ysum = Ya[r * ys + jl] + y1;
                 Yc[r * ys + jl] = y1;
@@ -655,15 +480,15 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
       // this CTA's share of Yb K^T: a warp per kNTW tiles of constraint
       // rows
       for (int it0 = warp * kNTW; it0 < nit; it0 += kWarps * kNTW) {
-        Acc<T, ARITH> acc[kNTW];
+        Acc<T> acc[kNTW];
 #pragma unroll
         for (int nt = 0; nt < kNTW; ++nt) acc[nt].zero();
-        if constexpr (ARITH == kFma) {
+        if constexpr (sizeof(T) == 4) {
           tile_product_fma<false>(Yb, Ks + it0 * 64, 64, nit * 64, nit - it0,
                                   njt, lane, acc);
         } else {
-          tile_product<T, ARITH, false>(Yb, Ks + it0 * 64, 64, nit * 64,
-                                        nit - it0, njt, lane, acc);
+          tile_product<false>(Yb, Ks + it0 * 64, 64, nit * 64, nit - it0,
+                              njt, lane, acc);
         }
 #pragma unroll
         for (int nt = 0; nt < kNTW; ++nt) {
@@ -678,7 +503,7 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
               st_cluster2(
                   cluster_addr(Rx + (rank * TM + r) * mc + i - owner * mc,
                                owner),
-                  acc[nt].value(2 * h), acc[nt].value(2 * h + 1));
+                  acc[nt].v[2 * h], acc[nt].v[2 * h + 1]);
             }
           }
         }
@@ -701,10 +526,10 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
           for (int c = 0; c < C; ++c) s += Rx[(c * TM + r) * mc + io];
           const bool live = r < nrows;
           const size_t gi = static_cast<size_t>(row0 + r) * m + i;
-          // = a_offset<kPlanes>(r, i, nit)
-          const int lat = ((idx / (128 * nb)) * nit + (i >> 3)) * 128 *
-                              kPlanes + (idx & 127);
-          const T l = kPlanes > 1 ? Lo[idx] : Lf[lat];
+          // = a_offset(r, i, nit)
+          const int lat =
+              ((idx / (128 * nb)) * nit + (i >> 3)) * 128 + (idx & 127);
+          const T l = Lf[lat];
           const T lr = l + sigs[r] * (hs[idx] - s);
           const T l1 = (is_eq[i] != 0 || !(lr < T(0))) ? lr : T(0);
           T lnew;
@@ -724,8 +549,7 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
               Lout2[gi] = l1;
             }
           }
-          if constexpr (kPlanes > 1) Lo[idx] = lnew;
-          store_a_all<kPlanes>(Lf, lat, lnew, C);
+          store_a_all(Lf, lat, lnew, C);
         }
       }
       // also keeps every CTA resident until the others' stores have landed
@@ -736,14 +560,13 @@ pdhg_tile_kernel(const T* __restrict__ K, const T* __restrict__ q,
 
 // launches on nclusters persistent clusters, or with max_clusters set only
 // asks the card how many such clusters it runs at once; returns cudaError_t
-template <typename T, bool AVG, int ARITH>
-int launch_tile(int C, int nclusters, const Args& a, int* max_clusters) {
+template <typename T, bool AVG>
+int launch(int C, int nclusters, const Args& a, int* max_clusters) {
   if (C < 1 || C > 16 || nclusters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      layout(C, kTM, a.m, a.n, kPlanesOf<T, ARITH>).total * sizeof(T);
+  const size_t smem = layout(C, kTM, a.m, a.n).total * sizeof(T);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = pdhg_tile_kernel<T, AVG, ARITH>;
+  auto kernel = pdhg_tile_kernel<T, AVG>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -783,28 +606,15 @@ int launch_tile(int C, int nclusters, const Args& a, int* max_clusters) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// arith: kMma for either type, kFma for float32 alone
-template <typename T, bool AVG>
-int launch(int C, int arith, int nclusters, const Args& a,
-           int* max_clusters) {
-  if (arith == kMma)
-    return launch_tile<T, AVG, kMma>(C, nclusters, a, max_clusters);
-  if constexpr (sizeof(T) == 4) {
-    if (arith == kFma)
-      return launch_tile<T, AVG, kFma>(C, nclusters, a, max_clusters);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // cudaOccupancyMaxActiveClusters of a launch at these shapes
 template <bool AVG>
-int occupancy(int f64, int C, int arith, int m, int n, int* out) {
+int occupancy(int f64, int C, int m, int n, int* out) {
   Args a = {};
   a.m = m;
   a.n = n;
   a.n_inner = 1;
-  return f64 ? launch<double, AVG>(C, arith, 1, a, out)
-             : launch<float, AVG>(C, arith, 1, a, out);
+  return f64 ? launch<double, AVG>(C, 1, a, out)
+             : launch<float, AVG>(C, 1, a, out);
 }
 
 }  // namespace pdhg_tile

@@ -21,10 +21,9 @@ and the card's cluster occupancy:
 - ``("tile", C, arith)``: ``pdhg_{halpern,average}_tile.cu`` (both from
   ``pdhg_tile.cuh``), large panels; K resident in persistent clusters of C
   CTAs that walk tiles of 16 rows. ``arith`` names how the products are
-  computed: ``"mma"`` in float64 (FP64 matrix instructions), in float32
-  ``"tf32x3"`` (3xTF32 matrix instructions; ``_TILE_F32``, the one the
-  plan picks) or ``"fma"`` (FP32 FMAs on the same tiles at twice the time:
-  the exact-FP32 partner of chip_smoke.py's gate);
+  computed, one way per dtype (``_TILE_ARITH``): ``"mma"`` in float64
+  (FP64 matrix instructions), ``"fma"`` in float32 (FP32 FMAs on the same
+  tiles, summed in blocks of 8 k);
 - ``("rows", ROWS)``: ``pdhg_{halpern,average}_round.cu``, the row-block
   kernels (K read from L2) for what neither takes: a K small enough for
   L1, or a K whose slices fit no cluster.
@@ -83,9 +82,8 @@ _CLUSTER_MAX_ROWS_VS_TILE = 2       # against the tile kernel, in one wave
 _CLUSTER_WARPS = 16
 _CLUSTER_REGS = 108                 # 32-bit registers of the lane arrays
 _TILE_ROWS = 16                     # batch rows of a tile
-# a tile plan's arithmetic -> the kernels' code for it, by itemsize
-_TILE_ARITH = {4: {"tf32x3": 0, "fma": 1}, 8: {"mma": 0}}
-_TILE_F32 = "tf32x3"                # the float32 arithmetic the plan picks
+# the tile kernels' arithmetic, by itemsize (csrc/pdhg_tile.cuh)
+_TILE_ARITH = {4: "fma", 8: "mma"}
 _SCHEMES = ("halpern", "average")
 
 
@@ -170,70 +168,59 @@ def _cluster_shape(B: int, m: int, n: int, itemsize: int,
                                     cr[1], -cr[0]))
 
 
-def _tile_arith(itemsize: int) -> str:
-    """The arithmetic the plan picks for a dtype of this size."""
-    return _TILE_F32 if itemsize == 4 else "mma"
-
-
-def _tile_smem(C: int, m: int, n: int, itemsize: int, arith: str) -> int:
+def _tile_smem(C: int, m: int, n: int, itemsize: int) -> int:
     """Shared memory of one CTA of a tile kernel, in bytes (mirrors
     csrc/pdhg_tile.cuh:layout; the same under either scheme): the column
     slice of K in whole 8 x 8 blocks, the tile's full L and its reflected
-    Yb as the products read them (3xTF32: a TF32 head and a tail plane),
-    the [C, TM, mc] exchange buffer, two [TM, nc] vectors, two [TM, mc]
-    vectors and under 3xTF32 the owned rows' exact L, bounds, q and row
-    scalars."""
+    Yb as the products read them, the [C, TM, mc] exchange buffer, two
+    [TM, nc] vectors, two [TM, mc] vectors, bounds, q and row scalars."""
     TM = _TILE_ROWS
-    planes = 2 if arith == "tf32x3" else 1
     nc = -(-n // C)
     ncp = -(-nc // 8) * 8
     mp = -(-m // 8) * 8
     mc = -(-(mp // 8) // C) * 8
-    return (ncp * mp + TM * mp * planes + C * TM * mc + TM * ncp * planes
-            + 2 * TM * (ncp + 4) + (2 + (planes > 1)) * TM * mc + 3 * ncp
+    return (ncp * mp + TM * mp + C * TM * mc + TM * ncp
+            + 2 * TM * (ncp + 4) + 2 * TM * mc + 3 * ncp
             + 5 * TM) * itemsize
 
 
 def _tile_fits(C: int, m: int, n: int, itemsize: int, arith: str) -> bool:
-    """The dtype has this arithmetic and a CTA's shared memory holds the
-    tile kernel's footprint."""
-    return (arith in _TILE_ARITH.get(itemsize, ())
-            and _tile_smem(C, m, n, itemsize, arith) <= _SMEM_MAX)
+    """``arith`` is the dtype's arithmetic and a CTA's shared memory holds
+    the tile kernel's footprint."""
+    return (_TILE_ARITH.get(itemsize) == arith
+            and _tile_smem(C, m, n, itemsize) <= _SMEM_MAX)
 
 
 @functools.lru_cache(maxsize=256)
-def _tile_clusters_per_wave(C: int, arith: str, m: int, n: int,
-                            itemsize: int, scheme: str = "halpern") -> int:
+def _tile_clusters_per_wave(C: int, m: int, n: int, itemsize: int,
+                            scheme: str = "halpern") -> int:
     """Clusters of C CTAs that the current card runs at once at these
     shapes, asked once per shape: the tile kernels launch at most so many
     and each walks its share of the tiles."""
-    return _occupancy(f"pdhg_{scheme}_tile", int(itemsize == 8), C,
-                      _TILE_ARITH[itemsize][arith], m, n)
+    return _occupancy(f"pdhg_{scheme}_tile", int(itemsize == 8), C, m, n)
 
 
-def _tile_passes(B: int, C: int, arith: str, m: int, n: int, itemsize: int,
+def _tile_passes(B: int, C: int, m: int, n: int, itemsize: int,
                  scheme: str = "halpern") -> int:
     """Tiles the busiest cluster walks for a [B] panel."""
-    per_wave = _tile_clusters_per_wave(C, arith, m, n, itemsize, scheme)
+    per_wave = _tile_clusters_per_wave(C, m, n, itemsize, scheme)
     return -(-(-(-B // _TILE_ROWS)) // per_wave)
 
 
 def _tile_shape(B: int, m: int, n: int, itemsize: int,
-                scheme: str = "halpern", arith: Optional[str] = None):
-    """(C, arith) of the tile variant for a [B] panel (``arith`` defaults
-    to the plan's for the dtype), or None where no cluster size fits: the
-    fewest tiles in turn through the busiest cluster, then the larger
-    cluster (more SMs on each tile). It picked the fastest size at every
-    point of the sweep."""
-    if arith is None:
-        arith = _tile_arith(itemsize)
+                scheme: str = "halpern"):
+    """(C, arith) of the tile variant for a [B] panel, or None where no
+    cluster size fits: the fewest tiles in turn through the busiest
+    cluster, then the larger cluster (more SMs on each tile). It picked
+    the fastest size at every point of the sweep."""
+    arith = _TILE_ARITH[itemsize]
     fit = [C for C in _CLUSTER_SIZES
            if _tile_fits(C, m, n, itemsize, arith)
-           and _tile_clusters_per_wave(C, arith, m, n, itemsize, scheme) > 0]
+           and _tile_clusters_per_wave(C, m, n, itemsize, scheme) > 0]
     if not fit:
         return None
     return min(fit, key=lambda C: (
-        _tile_passes(B, C, arith, m, n, itemsize, scheme), -C)), arith
+        _tile_passes(B, C, m, n, itemsize, scheme), -C)), arith
 
 
 @functools.lru_cache(maxsize=512)
@@ -382,12 +369,11 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
         if not _tile_fits(C, m, n, it, arith):
             raise ValueError(f"{name}: no tile kernel for {plan!r} at "
                              f"m={m} n={n} itemsize={it}")
-        per_wave = _tile_clusters_per_wave(C, arith, m, n, it, scheme)
+        per_wave = _tile_clusters_per_wave(C, m, n, it, scheme)
         if per_wave <= 0:
             raise ValueError(f"{name}: the card cannot schedule {plan!r}")
         stem = f"pdhg_{scheme}_tile"
-        head = (C, _TILE_ARITH[it][arith],
-                min(-(-B // _TILE_ROWS), per_wave))
+        head = (C, min(-(-B // _TILE_ROWS), per_wave))
     fn = getattr(build.load(), f"{stem}_f64" if it == 8 else f"{stem}_f32")
     stream = torch.cuda.current_stream(K.device).cuda_stream
     with torch.cuda.device(K.device):

@@ -4,15 +4,17 @@ Port of record: ``sqlp_tpu/sd/driver.py:SDSolver`` (``__init__`` :45-187,
 ``step`` :198, ``step_scenarios`` :206-234, ``run`` :250-304,
 ``_warmstart_pool`` :483, ``_prep_sub64`` :493-508, ``_recourse_objs``
 :510-678, ``evaluate`` :689-715, ``evaluate_ci`` :717-819) and
-``SDReplications`` (:843-940, 1165-1186).
+``cut_model_lower_bound`` :322-329, ``select_decision`` :364-396) and
+``SDReplications`` (:843-940, ``certified_lower_bound`` :941-1032 for the
+EF and model routes, 1165-1186).
 
 Every tensor lives on the instance's device; the solver owns an explicit
 ``torch.Generator`` on that device, seeded from ``seed``, for the scenario
 stream and the reservoir (``SDReplications``: one per replication, seeded
 ``seed + r``). The MC evaluators seed their own generators. Not ported
 (refused by the CLI, absent here): meshes, importance-sampling proposals,
-checkpoint I/O, certified bounds (``certified_lower_bound``,
-``solve_to_certified_gap``: ROADMAP A12).
+checkpoint I/O, the polish routes of the certified bound and
+``solve_to_certified_gap`` (ROADMAP A12b).
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ from sqlp_tpu_torch.models.scenario import (cost_panel, sample_deltas,
 from sqlp_tpu_torch.ops.pdhg import prepare_lp, solve_batch
 from sqlp_tpu_torch.sd.algorithm import (_scenario_rhs, sd_run,
                                          sd_run_replicated, sd_step)
+from sqlp_tpu_torch.sd.lower_bound import (certified_lower_bound,
+                                           cut_model_min, saa_ef_bound,
+                                           t_lower_bound)
 from sqlp_tpu_torch.sd.state import (EpigraphSpec, SDState,
                                      default_epigraph_spec, init_state,
                                      stack_states, state_at, state_to_numpy)
@@ -207,6 +212,41 @@ class SDSolver:
         """Candidate objective estimate under the current cuts (the lb
         proxy the reference drivers print; not a valid bound)."""
         return float(self.state.cand_est) * self.obj_scale
+
+    def cut_model_lower_bound(self) -> float:
+        """Exact minimum of the current cut model over the first-stage
+        polytope (host HiGHS, f64): a deterministic lower bound on this
+        run's sample-average optimum, unlike :attr:`lower_estimate`."""
+        return cut_model_min(self.arrays, self.espec, self.state,
+                             obj_scale=self.obj_scale)
+
+    def select_decision(self, candidates: Dict, n_samples: int = 16384,
+                        seed: int = 31000, batch: int = 4096) -> Dict:
+        """Pick the cheapest first-stage decision among ``candidates``
+        ({name: x}) on one shared stratified panel (common random
+        numbers), each candidate first projected onto the first-stage
+        polytope. The winner's panel estimate is optimistically biased:
+        re-evaluate it on an independent panel for the reported bound.
+
+        ``batch`` is 4096 here (the reference: 8192), the panel size the
+        MC path's kernels are planned and checked for; under 8 batches
+        both give the same per-element interval.
+
+        Returns {"name", "x", "table": {name: (mean, half_width,
+        projection_distance)}}.
+        """
+        table = {}
+        best = None
+        for name, x in candidates.items():
+            xp, moved = project_first_stage(self.inst.arrays,
+                                            np.asarray(x, np.float64))
+            mean, hw, _ = self.evaluate_ci(
+                x=xp, min_samples=n_samples, max_samples=n_samples,
+                seed=seed, batch=batch, sampling="stratified")
+            table[name] = (mean, hw, float(moved))
+            if best is None or mean < best[2]:
+                best = (name, xp, mean)
+        return {"name": best[0], "x": best[1], "table": table}
 
     def _warmstart_pool(self) -> Optional[np.ndarray]:
         """Live dual-vertex pool [n_duals, m2] (f64, host) or None."""
@@ -493,6 +533,46 @@ class SDReplications(SDSolver):
     def states(self) -> List[SDState]:
         """Per-replication states (for ``compromise_decision``)."""
         return [state_at(self.state, r) for r in range(self.n_replications)]
+
+    def certified_lower_bound(self, confidence: float = 0.95,
+                              method: str = "ef",
+                              extra_scenarios: int = 0,
+                              antithetic_reps: bool = False,
+                              seed: int = 9000, **kw) -> Dict:
+        """Student-t confidence lower bound on the true optimum from one
+        deterministic bound per replication (sd/lower_bound.py):
+
+          "ef"    (default) one extensive-form solve per replication, all
+                  R batched on the device, and the aggregate dual cut's
+                  exact minimum (``saa_ef_bound``; ``kw`` goes there, e.g.
+                  ``fresh_scenarios``);
+          "model" the SD run's final cut-model minimum alone.
+
+        Returns lb_cert / lb_mean / lb_half_width / lb_per_rep, and for
+        "ef" the route's per-replication diagnostics."""
+        if method in ("polish", "ef_polish"):
+            raise NotImplementedError(
+                f"method={method!r} (the level-bundle polish) is not ported "
+                f"to sqlp_tpu_torch yet (ROADMAP A12b)")
+        if antithetic_reps:
+            raise NotImplementedError(
+                "antithetic_reps (paired certification streams) is not "
+                "ported to sqlp_tpu_torch yet (ROADMAP A12b)")
+        if method == "model":
+            return certified_lower_bound(
+                self.arrays, self.espec, self.states,
+                obj_scale=self.obj_scale, confidence=confidence)
+        if method != "ef":
+            raise ValueError(f"unknown certification method {method!r}")
+        ef = saa_ef_bound(self.arrays, self.scenario_model, self.espec,
+                          self.states, self.config,
+                          obj_scale=self.obj_scale,
+                          extra_scenarios=extra_scenarios, seed=seed, **kw)
+        out = t_lower_bound(ef["lb_per_rep"], confidence)
+        for k, v in ef.items():
+            if k != "lb_per_rep":
+                out[k] = v
+        return out
 
     @property
     def especs(self) -> List[EpigraphSpec]:

@@ -48,18 +48,15 @@ def _round_args(name, B, dtype, dev, per_el_q):
             step.clone(), Y, L, kh, Y.clone(), L.clone())
 
 
-def _variant(name, B, dtype, variant, scheme="halpern", arith=None):
+def _variant(name, B, dtype, variant, scheme="halpern"):
     """The plan the test forces: the wrapper's own, or its row-block,
-    cluster or tile alternative at these shapes (the tile kernel under
-    ``arith``, float64 under its one arithmetic); ("tile", C) forces the
+    cluster or tile alternative at these shapes; ("tile", C) forces the
     cluster size."""
     inst = load_instance(name, dtype=dtype, device="cpu")
     m, n = inst.arrays.W.shape
     it = torch.finfo(dtype).bits // 8
-    if it == 8 or arith is None:
-        arith = pdhg_kernel._tile_arith(it)
     if isinstance(variant, tuple):
-        return variant + (arith,)
+        return variant + (pdhg_kernel._TILE_ARITH[it],)
     if variant == "plan":
         return pdhg_kernel._plan(B, m, n, it, scheme)
     if variant == "rows":
@@ -67,8 +64,7 @@ def _variant(name, B, dtype, variant, scheme="halpern", arith=None):
             f"pdhg_{scheme}_round", B,
             pdhg_kernel._row_values(m, n, scheme) * it))
     if variant == "tile":
-        return ("tile",) + pdhg_kernel._tile_shape(B, m, n, it, scheme,
-                                                   arith)
+        return ("tile",) + pdhg_kernel._tile_shape(B, m, n, it, scheme)
     return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it, scheme)
 
 
@@ -131,25 +127,22 @@ def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, variant,
     ("ssn", 100, ("tile", 8)), ("lands", 8, ("tile", 1)),
     ("lands", 40, ("tile", 4)), ("lands", 100, ("tile", 16)),
     ("ssn", 1, "cluster"), ("ssn", 16, "cluster"), ("ssn", 100, "cluster")])
-@pytest.mark.parametrize("arith", ["tf32x3", "fma"])
 @pytest.mark.parametrize("scheme", ["halpern", "average"])
-def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, arith, name,
-                                                   B, variant, per_el_q,
-                                                   dtype, tol):
+def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, name, B,
+                                                   variant, per_el_q, dtype,
+                                                   tol):
     """The cluster-resident kernels of both schemes vs their plain versions
-    over one 80-step round, shared and per-row q: the tile kernel (f32
-    under both of its arithmetics, 3xTF32 on the tensor cores and FP32
-    FMAs) at B = 1, one full tile, a ragged last tile and the MC panel's
+    over one 80-step round, shared and per-row q: the tile kernel (FP32
+    FMAs in f32, FP64 matrix instructions in f64) at B = 1, one full tile,
+    a ragged last tile and the MC panel's
     4096 rows (several tiles per cluster), at the plan's cluster size and
     at forced ones, on lands too (fewer columns and constraint rows than
     CTAs: some CTAs own nothing); the cluster kernel at B = 1, the
     replicated SD step's 16 rows and a ragged last cluster. Two launches
     are bitwise equal, and each counts under its own variant."""
-    if arith == "fma" and (variant == "cluster" or dtype == torch.float64):
-        pytest.skip("one arithmetic: covered by the other case")
     args = _round_args(name, B, dtype, cuda, per_el_q)
     m, n = args[0].shape
-    plan = _variant(name, B, dtype, variant, scheme, arith)
+    plan = _variant(name, B, dtype, variant, scheme)
     if plan[0] == "tile" and not pdhg_kernel._tile_fits(
             plan[1], m, n, args[0].element_size(), plan[2]):
         pytest.skip(f"{plan} does not fit {name} in {dtype}")
@@ -171,13 +164,13 @@ def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, arith, name,
 
 
 def test_tile_kernel_keeps_nan(cuda):
-    """A row that has diverged to NaN stays NaN through the tile kernel's
-    split operands, and does not leak into the other rows of its tile."""
+    """A row that has diverged to NaN stays NaN through the tile kernel,
+    and does not leak into the other rows of its tile."""
     args = list(_round_args("ssn", 16, torch.float32, cuda, False))
     args[8] = args[8].clone()
     args[8][3, 5] = float("nan")
     out = pdhg_kernel.pdhg_halpern_round(*args, 8,
-                                         plan=("tile", 4, "tf32x3"))
+                                         plan=("tile", 4, "fma"))
     ref = pdhg_kernel.pdhg_halpern_round_ref(*args, 8)
     torch.cuda.synchronize()
     for o, r in zip(out, ref):

@@ -52,7 +52,7 @@ INSTANCES = ["lands", "transship", "baa99-20", "ssn", "storm"]
 PANELS = (2, 16, 256, 4096)
 ROWS1, ROWS2, ROWS4 = ("rows", 1), ("rows", 2), ("rows", 4)
 SMALL_K = (ROWS1, ROWS1, ROWS1, ROWS4)
-F32 = pdhg_kernel._TILE_F32     # the float32 arithmetic the plan picks
+F32 = "fma"     # the tile kernels' float32 arithmetic
 # (instance, itemsize) -> the Halpern round's plan at B = 2, 16, 256, 4096
 _PDHG = {
     **{(name, it): SMALL_K for name in INSTANCES[:3] for it in (4, 8)},
@@ -76,8 +76,8 @@ def _check_admitted(plan, B, m, n, itemsize, scheme):
             <= pdhg_kernel._CLUSTER_MAX_WAVES
     elif plan[0] == "tile":
         _, C, arith = plan
-        assert arith in pdhg_kernel._TILE_ARITH[itemsize]
-        assert pdhg_kernel._tile_smem(C, m, n, itemsize, arith) <= SMEM_MAX
+        assert arith == pdhg_kernel._TILE_ARITH[itemsize]
+        assert pdhg_kernel._tile_smem(C, m, n, itemsize) <= SMEM_MAX
 
 
 @pytest.mark.parametrize("B", PANELS)
@@ -152,41 +152,38 @@ def test_pdhg_plan_small_k_never_asks_the_card(name, monkeypatch):
         pdhg_kernel._plan.cache_clear()
 
 
-def _tile_smem_by_region(C, m, n, itemsize, arith):
+def _tile_smem_by_region(C, m, n, itemsize):
     """csrc/pdhg_tile.cuh:layout, region by region."""
     TM = 16
-    planes = 2 if arith == "tf32x3" else 1
     nc = (n + C - 1) // C
     ncp = (nc + 7) // 8 * 8
     mp = (m + 7) // 8 * 8
     mc = (mp // 8 + C - 1) // C * 8
     regions = {
-        "Ks": ncp * mp, "Lf": TM * mp * planes, "Rx": C * TM * mc,
-        "Yb": TM * ncp * planes, "Yc": TM * (ncp + 4), "Ya": TM * (ncp + 4),
-        "Lo": TM * mc if planes > 1 else 0, "La": TM * mc, "hs": TM * mc,
-        "lbs": ncp, "ubs": ncp, "qs": ncp, "rows": 5 * TM}
+        "Ks": ncp * mp, "Lf": TM * mp, "Rx": C * TM * mc, "Yb": TM * ncp,
+        "Yc": TM * (ncp + 4), "Ya": TM * (ncp + 4), "La": TM * mc,
+        "hs": TM * mc, "lbs": ncp, "ubs": ncp, "qs": ncp, "rows": 5 * TM}
     assert all(v % 4 == 0 for v in regions.values())   # 16-byte loads
     return sum(regions.values()) * itemsize
 
 
-@pytest.mark.parametrize("itemsize,arith", [(4, "tf32x3"), (4, "fma"),
-                                            (8, "mma")])
+@pytest.mark.parametrize("arith", ["fma", "mma", "tf32x3"])
+@pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("name", INSTANCES)
 def test_tile_smem_mirrors_the_kernel_layout(name, itemsize, arith):
     """_tile_smem is the sum of the kernel's shared-memory regions at
-    every cluster size and arithmetic (3xTF32 keeps a head and a tail
-    plane of L and Yb and the owned rows' exact L; the FMA and FP64
-    products one exact plane), and _tile_fits admits exactly the sizes
-    under 227 KB: ssn from 4 CTAs in f32, from 8 in f64, nothing for
-    storm; and no arithmetic of the other dtype."""
+    every cluster size, and _tile_fits admits exactly the sizes under
+    227 KB for the dtype's own arithmetic (FP32 FMAs in f32, FP64 matrix
+    instructions in f64): ssn from 4 CTAs in f32, from 8 in f64, nothing
+    for storm; and never another arithmetic, 3xTF32 included."""
     m, n = _shape(name)
+    own = arith == pdhg_kernel._TILE_ARITH[itemsize]
     fits = set()
     for C in (1, 4, 8, 16):
-        want = _tile_smem_by_region(C, m, n, itemsize, arith)
-        assert pdhg_kernel._tile_smem(C, m, n, itemsize, arith) == want
+        want = _tile_smem_by_region(C, m, n, itemsize)
+        assert pdhg_kernel._tile_smem(C, m, n, itemsize) == want
         assert pdhg_kernel._tile_fits(C, m, n, itemsize, arith) \
-            == (want <= SMEM_MAX)
-        assert not pdhg_kernel._tile_fits(C, m, n, 12 - itemsize, arith)
+            == (own and want <= SMEM_MAX)
         if want <= SMEM_MAX:
             fits.add(C)
     if name == "ssn":
@@ -246,14 +243,12 @@ def test_launch_refuses_a_tile_plan_the_kernel_does_not_take(plan):
 
 
 def test_tile_shape_per_arithmetic(h100):
-    """_tile_shape answers for the arithmetic it is asked for (the gate's
-    partners) and defaults to the plan's: ssn's MC panel on 30 clusters of
-    4 under either float32 arithmetic, on 15 of 8 in float64."""
+    """_tile_shape names the dtype's own arithmetic: ssn's MC panel on 30
+    clusters of 4 under FP32 FMAs, on 15 of 8 under FP64 matrix
+    instructions; nothing for storm in float32."""
     m, n = _shape("ssn")
-    for arith in ("tf32x3", "fma"):
-        assert pdhg_kernel._tile_shape(4096, m, n, 4, "halpern", arith) \
-            == (4, arith)
     assert pdhg_kernel._tile_shape(4096, m, n, 4) == (4, F32)
+    assert pdhg_kernel._tile_shape(4096, m, n, 4, "average") == (4, F32)
     assert pdhg_kernel._tile_shape(4096, m, n, 8, "average") == (8, "mma")
     assert pdhg_kernel._tile_shape(4096, *_shape("storm"), 4) is None
 

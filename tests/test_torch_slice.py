@@ -179,15 +179,26 @@ def test_cli_solve_lands():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--x0", "crash"], ["--replications", "4", "--certify"], ["--certify"],
-    ["--mesh", "8"], ["--proposal-sto", "other.sto"],
-    ["--target-gap", "0.01"]])
+    ["--replications", "4", "--certify", "--certify-method", "polish"],
+    ["--certify-method", "polish"], ["--mesh", "8"],
+    ["--proposal-sto", "other.sto"], ["--target-gap", "0.01"],
+    ["--replications", "3", "--target-gap", "0.05"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     """Flags whose features are not ported exit 2 before any work, with a
     message naming the ROADMAP item."""
     from sqlp_tpu_torch.cli import main
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [[], ["--replications", "1"]])
+def test_cli_certify_needs_replications(flags, capsys):
+    """--certify on a single run exits 2 before any work: the bound is a
+    Student-t interval over R > 1 replications."""
+    from sqlp_tpu_torch.cli import main
+    assert main(["solve", "lands", "--device", "cpu", "--certify",
+                 *flags]) == 2
+    assert "--replications R > 1" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "8"],
