@@ -4,6 +4,7 @@
     python3 chip_smoke.py --iters 300 --rep-iters 100 \
         --phases device,b1,b2,b3,main,replicated,small,cli,cli_rep
     python3 chip_smoke.py --phases device,certify,cli_cert
+    python3 chip_smoke.py --phases device,certify,cert_polish,cli_gap
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
@@ -33,16 +34,34 @@ on a shared panel, its bound on an independent one; gated on every EF at
 tol 1e-5, dual infeasibility at most 1e-9, each bound within 0.1 of its
 EF objective, and lb_cert below the decision's ub + hw. `cli_cert` runs
 the lands CLI's `--certify`, `ef` and `--x0 crash` at once, against the
-known optimum (the EF against the exact optimum of its own scenarios);
-the CLI phases start their runs together. Any failed phase exits
-non-zero. The
+known optimum (the EF against the exact optimum of its own scenarios).
+`cert_polish` reuses the certify phase's 8 ssn states (no extra SD): the
+ef_polish route (4 level-bundle rounds over the certify phase's own 3000
+fresh scenarios per replication; each round's recourse panels, 8 x 1 and
+then 8 x 2 points of every scenario, in one solve, an R-batched
+projection QP, the bundle cuts merged into the EF bound model) and the
+decision polish from the certify phase's compromise decision (8192
+scenarios, 4 rounds); gated on every EF at tol 1e-5, the merged bound at
+least the polish's and the certify phase's EF bound of the same streams
+and above the latter somewhere, lb_cert below the decision's ub + hw,
+the polished decision no worse than its start and first-stage feasible,
+B1's tile kernel and batched B3 launched; then B3 is held against its
+plain version at the projection QP's and the decision master's own
+operands. `cli_gap` runs the lands CLI's `--target-gap 0.01` (stopped at
+a certified gap within its 2 looks) and the ssn CLI's periodic loop
+(`--eval-every 100 --sharpen-every 100`: one sharpening, at iteration
+100) at once, each process reporting its own kernel launches; the CLI
+phases start their runs together. Any failed phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
 The phase `profile` (not run by default) breaks the main and the
 replicated path's time down by phase of the SD step and by kernel;
 `profile_ef` (not run by default) times the certification EF's round and
-reads the card's busy share under it. The phase
+reads the card's busy share under it; `polish_witness` (not run by
+default, after `certify`) runs the level bundle on two of the certify
+phase's states on the card and on the host's CPU through the plain
+versions, on the same streams. The phase
 `sweep` (not run by default) times every variant the kernels admit at the
 shapes their plan functions decide between: the thresholds of
 ops/cuda/pdhg_kernel.py:_plan and ops/cuda/admm_kernel.py:_plan come from
@@ -244,6 +263,11 @@ _PDHG_CASES = (("lands", 8, False), ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 1024, False), ("ssn", 4096, False),
                ("storm", 2, False), ("storm", 1024, False),
                ("ssn", 2, True), ("ssn", 100, True))
+# the polish routes' float32 panels, Halpern only: the decision polish's
+# 8192 rows, the level bundle's 8 x 3000 (round 1) and 8 x 2 x 3000
+# (later rounds) and the 16384 of its 8 x 2 x 1024
+_POLISH_CASES = (("ssn", 8192, False), ("ssn", 16384, False),
+                 ("ssn", 24000, False), ("ssn", 48000, False))
 # a variant's entry in the kernels line: the wrapper's counter and the
 # shape its time is reported at (the path's own: the SD panel of the main
 # path is 2 rows, of the replicated path 16, the MC panel 4096; the
@@ -281,8 +305,10 @@ def _variants(args, scheme):
 def phase_pdhg(results, phase):
     """One PDHG round against its plain version, f32 and f64, at the
     shapes of the SD step (B = 2; 16 replicated), the MC panel (B = 4096),
-    storm, lands and per-element q (a ragged tile too): every variant the
-    shape admits, timed in the same call, two launches bitwise equal."""
+    storm, lands and per-element q (a ragged tile too), and the Halpern
+    round in f32 at the polish routes' panels (8192 to 48,000 rows): every
+    variant the shape admits, timed in the same call, two launches bitwise
+    equal."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -292,8 +318,11 @@ def phase_pdhg(results, phase):
     plain = getattr(pk, name + "_ref")
     n_inner = 80
     worst = {}
-    for inst, B, per_el in _PDHG_CASES:
-        for dtype in (torch.float32, torch.float64):
+    cases = [(c, (torch.float32, torch.float64)) for c in _PDHG_CASES]
+    if scheme == "halpern":
+        cases += [(c, (torch.float32,)) for c in _POLISH_CASES]
+    for (inst, B, per_el), dtypes in cases:
+        for dtype in dtypes:
             args = _pdhg_case(inst, B, dtype, per_el_q=per_el)[:n_args]
             dname = str(dtype).replace("torch.", "")
             reps = 3 if B >= 1024 else 20
@@ -415,6 +444,48 @@ def _admm_plain(ops, n_inner, alpha, sigma):
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
+def _hold_b3(tag, label, ops, args, sizes=None):
+    """B3 at these operands (a leading batch axis or none) against its
+    plain version, at each cluster size in ``sizes`` (default: the plan's
+    own): within TOL and two launches bitwise equal, else it raises.
+    Returns, per size, (C, kernel ms, call ms, plain ms, max abs error,
+    (bound ms, bound by))."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
+
+    dname = str(ops[0].dtype).replace("torch.", "")
+    mA, nz = ops[0].shape[-2:]
+    nb = ops[0].shape[0] if ops[0].dim() == 3 else 1
+    ref = _admm_plain(ops, *args)
+    torch.cuda.synchronize()
+    plain_ms = time_ms(lambda: _admm_plain(ops, *args), 20)
+    bound = admm_bound(ops, args[0], dname)
+    it = ops[0].element_size()
+    out_rows = []
+    for C in sizes or [ak._plan(mA, nz, it)]:
+        out = ak.admm_round(*ops, *args, plan=C)
+        torch.cuda.synchronize()
+        abs_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        ok, err = agree(out, ref, dname)
+        again = ak.admm_round(*ops, *args, plan=C)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, o) for a, o in zip(again, out))
+        ms = device_ms(lambda: ak.admm_round(*ops, *args, plan=C), 50)
+        call = time_ms(lambda: ak.admm_round(*ops, *args, plan=C), 50)
+        log(f"{tag} {label} x{nb} nz={nz} mA={mA} {dname} cluster={C}: "
+            f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
+            f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
+            f"call_ms={call:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound[0]:.6f} deterministic={same} "
+            f"{'ok' if ok and same else 'FAIL'}")
+        if not (ok and same):
+            raise AssertionError(f"admm_round (cluster {C}) disagrees with "
+                                 f"its plain version on {label} x{nb} "
+                                 f"{dname}")
+        out_rows.append((C, ms, call, plain_ms, abs_err, bound))
+    return out_rows
+
+
 def phase_b3(results, plans=None):
     """B3 against its plain version for the ssn and storm masters in f32
     and f64, unbatched and as a batch of 8; ``plans`` (the sweep) times
@@ -432,46 +503,20 @@ def phase_b3(results, plans=None):
             ops = [t.to(dtype).contiguous() for t in ops64]
             if nb > 1:
                 ops = _batch_of(ops, nb)
-            dname = str(dtype).replace("torch.", "")
             mA, nz = ops[0].shape[-2:]
-            ref = _admm_plain(ops, *args)
-            torch.cuda.synchronize()
-            plain_ms = time_ms(lambda: _admm_plain(ops, *args), 20)
-            bms, by = admm_bound(ops, qp.check_every, dname)
             it = ops[0].element_size()
-            sizes = [ak._plan(mA, nz, it)] if plans is None else [
+            sizes = None if plans is None else [
                 C for C in (1, 2, 4, 8)
                 if ak._smem_bytes(C, mA, nz, it) <= ak._SMEM_MAX]
-            for C in sizes:
-                out = ak.admm_round(*ops, *args, plan=C)
-                torch.cuda.synchronize()
-                abs_err = max(float((o - r).abs().max())
-                              for o, r in zip(out, ref))
-                ok, err = agree(out, ref, dname)
-                again = ak.admm_round(*ops, *args, plan=C)
-                torch.cuda.synchronize()
-                same = all(torch.equal(a, o) for a, o in zip(again, out))
-                ms = device_ms(lambda: ak.admm_round(*ops, *args, plan=C),
-                               50)
-                call = time_ms(lambda: ak.admm_round(*ops, *args, plan=C),
-                               50)
-                log(f"[b3] {name} master x{nb} nz={nz} mA={mA} {dname} "
-                    f"cluster={C}: max_rel_err={err:.3e} (tol "
-                    f"{TOL[dname]:g}) max_abs_err={abs_err:.3e} "
-                    f"kernel_ms={ms:.4f} call_ms={call:.4f} "
-                    f"plain_ms={plain_ms:.4f} "
-                    f"bound_ms={bms:.6f} deterministic={same} "
-                    f"{'ok' if ok and same else 'FAIL'}")
-                if not (ok and same):
-                    raise AssertionError(f"admm_round (cluster {C}) "
-                                         f"disagrees with its plain version "
-                                         f"on {name} x{nb} {dname}")
+            for C, ms, call, plain_ms, abs_err, bound in _hold_b3(
+                    "[b3]", f"{name} master", ops, args, sizes):
                 worst = max(worst, abs_err)
                 if plans is None and name == "ssn" and nb == 1 \
                         and dtype == torch.float64:
                     results["admm_round"].update(
                         ms=ms, call_ms=call, plain_ms=plain_ms, cluster=C,
-                        shape="ssn master f64", bound_ms=bms, bound_by=by)
+                        shape="ssn master f64")
+                    _set_bound(results["admm_round"], bound)
     results["admm_round"]["max_abs_err"] = worst
 
 
@@ -786,6 +831,7 @@ def _reset_counts():
         setattr(pk, attr, 0)
     pk.launches_by_shape.clear()
     ak.launches = 0
+    ak.batched_launches = 0
 
 
 def _counts():
@@ -793,6 +839,7 @@ def _counts():
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     out = {k: getattr(pk, attr) for k, attr in _PDHG_COUNTERS.items()}
     out["admm_round"] = ak.launches
+    out["admm_round_batched"] = ak.batched_launches
     return out
 
 
@@ -1113,19 +1160,251 @@ def phase_certify(results, iters, eval_samples):
                                "pdhg_average_tile")):
         raise AssertionError(f"the certified path launched an average "
                              f"kernel: {rungs}")
+    return {"reps": reps, "x_comp": x_comp, "out": out}
+
+
+def phase_cert_polish(results, memo):
+    """The rest of the certified bounds on the certify phase's 8 ssn
+    replication states (no extra SD): the ef_polish route (4 level-bundle
+    rounds over the certify phase's own fresh Latin-hypercube streams, its
+    3000 scenarios per replication under the same seed, their cuts merged
+    into the EF bound model), then the decision polish from the certify
+    phase's compromise decision (8192 stratified scenarios, 4 rounds, rho
+    20). Gates: every EF at tol 1e-5 and dual infeasibility at most 1e-9;
+    the merged bound at least the polish's own and at least the certify
+    phase's EF bound of the same streams, and above it in some
+    replication (the bundle cuts reach the bound model); lb_cert below
+    the certify phase's decision ub + hw; the decision polish's best value
+    at most its first and its x first-stage feasible. B1's tile kernel
+    and B3 over a leading replication axis must launch. Afterwards B3 is
+    held against its plain version at operands the path gave it: the
+    R-batched projection QP and the decision polish's master."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.models.routines import project_first_stage
+    from sqlp_tpu_torch.ops import prox_qp
+    from sqlp_tpu_torch.sd import lower_bound
+
+    prev = memo.get("certify")
+    if prev is None:
+        raise AssertionError("cert_polish reuses the certify phase's "
+                             "states: run certify before it")
+    reps, x_comp, cert_out = prev["reps"], prev["x_comp"], prev["out"]
+    fresh = int(cert_out["cert"]["n_scenarios"])
+    tag = "[cert_polish]"
+    solves = []
+    real_solve = lower_bound.solve_batch
+    real_admm = prox_qp.admm_round
+    taken = {}      # part -> B3 operands of its second interval
+
+    def counted_solve(prep, H, *a, **k):
+        # each polish round's one recourse solve: its rows, wall time and
+        # tile launches
+        torch.cuda.synchronize()
+        t, n0 = time.perf_counter(), _counts()["pdhg_halpern_tile"]
+        out = real_solve(prep, H, *a, **k)
+        torch.cuda.synchronize()
+        solves.append((H.shape[0], time.perf_counter() - t,
+                       _counts()["pdhg_halpern_tile"] - n0))
+        return out
+
+    def taking_admm(part):
+        # keeps copies of the operands of the part's second interval that
+        # steps all its QPs (8 in the projection, 1 in the decision's)
+        def admm(*a):
+            nb = a[0].shape[0] if a[0].dim() == 3 else 1
+            want = reps.n_replications if part == "projection" else 1
+            seen = taken.setdefault(part, [])
+            if nb == want and len(seen) < 2:
+                seen.append([t.clone() for t in a[:10]] + list(a[10:]))
+            return real_admm(*a)
+        return admm
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    lower_bound.solve_batch = counted_solve
+    prox_qp.admm_round = taking_admm("projection")
+    try:
+        cert = reps.certified_lower_bound(method="ef_polish",
+                                          polish_rounds=4,
+                                          fresh_scenarios=fresh)
+        torch.cuda.synchronize()
+        ef_s = time.perf_counter() - t0
+        counts_ef = _counts()
+        rungs_ef = _by_rung()
+        prox_qp.admm_round = taking_admm("decision")
+        t1 = time.perf_counter()
+        x_pol, info = reps.polish_decision(x_comp, n_scenarios=8192,
+                                           rounds=4, rho=20.0)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+    finally:
+        lower_bound.solve_batch = real_solve
+        prox_qp.admm_round = real_admm
+    counts = _counts()
+    rungs = _by_rung()
+    sec = cert["seconds"]
+    pol_s = cert["polish_round_seconds"]
+    log(f"{tag} ef_polish over {cert['n_scenarios']}-scenario streams in "
+        f"{ef_s:.2f}s: polish {sum(pol_s):.2f}s ({cert['polish_rounds']} "
+        f"rounds), EF {sec['ef']:.2f}s, f64 refine {sec['refine']:.2f}s, "
+        f"projection {sec['projection']:.2f}s, host {sec['host']:.2f}s")
+    for i, ((rows, s_, tiles), r_s) in enumerate(zip(solves, pol_s)):
+        log(f"{tag} polish round {i + 1}: {rows} rows, recourse solve "
+            f"{s_:.2f}s ({tiles} tile launches), round {r_s:.2f}s")
+    log(f"{tag} polish launches: {json.dumps(counts_ef)}; by rung: "
+        f"{rungs_ef}")
+    prev_lb = cert_out["cert"]["lb_per_rep"]
+    for k, v in (("lb_per_rep", cert["lb_per_rep"]),
+                 ("polish_lb_per_rep", cert["polish_lb_per_rep"]),
+                 ("certify_ef_lb_per_rep", prev_lb),
+                 ("ef_polish_over_ef", cert["lb_per_rep"] - prev_lb),
+                 ("ef_obj_per_rep", cert["ef_obj_per_rep"]),
+                 ("ef_err_per_rep", cert["ef_err_per_rep"]),
+                 ("dual_infeas_per_rep", cert["dual_infeas_per_rep"])):
+        log(f"{tag} {k}: " + " ".join(f"{x:.6g}" for x in v))
+    log(f"{tag} lb_cert={cert['lb_cert']:.6f} (mean {cert['lb_mean']:.6f} "
+        f"hw {cert['lb_half_width']:.6f}); certify phase: lb_cert="
+        f"{cert_out['lb_cert']:.6f}, decision ub {cert_out['ub']:.6f} +- "
+        f"{cert_out['ub_hw']:.4f}")
+    log(f"{tag} decision polish (8192 scenarios, 4 rounds, rho 20) in "
+        f"{dec_s:.2f}s: values {' '.join(f'{v:.6f}' for v in info['values'])}"
+        f", serious steps {info['serious_steps']}, f_best "
+        f"{info['f_best']:.6f}")
+    log(f"{tag} launches: {json.dumps(counts)}")
+    log(f"{tag} launches by rung: {rungs}")
+    nums = [*cert["lb_per_rep"], *cert["polish_lb_per_rep"],
+            cert["lb_cert"], *info["values"], *np.ravel(x_pol)]
+    if not all(math.isfinite(float(v)) for v in nums):
+        raise AssertionError("non-finite cert_polish numbers")
+    if (np.max(cert["ef_err_first_per_rep"]) > CERT_EF_TOL
+            or np.max(cert["ef_err_per_rep"]) > CERT_EF_TOL):
+        raise AssertionError(f"an EF missed tol {CERT_EF_TOL}")
+    if np.max(cert["dual_infeas_per_rep"]) > CERT_DUAL_INFEAS:
+        raise AssertionError(f"dual infeasibility above {CERT_DUAL_INFEAS}")
+    if np.any(cert["lb_per_rep"] < cert["polish_lb_per_rep"] - 1e-6):
+        raise AssertionError("an ef_polish bound below its polish bound")
+    if cert["n_scenarios"] != cert_out["cert"]["n_scenarios"]:
+        raise AssertionError("ef_polish did not run on the certify phase's "
+                             "streams")
+    if np.any(cert["lb_per_rep"] < prev_lb - 1e-6):
+        raise AssertionError("an ef_polish bound below the certify phase's "
+                             "EF bound of the same streams")
+    if not np.max(cert["lb_per_rep"] - prev_lb) > 1e-6:
+        raise AssertionError("the polish cuts raised no replication's bound "
+                             "over the EF route's on the same streams")
+    if not cert["lb_cert"] < cert_out["ub"] + cert_out["ub_hw"]:
+        raise AssertionError("lb_cert is not below the decision's ub + hw")
+    if not info["f_best"] <= info["values"][0]:
+        raise AssertionError("the decision polish ended above its start")
+    if project_first_stage(reps.inst.arrays, x_pol)[1] > 0.0:
+        raise AssertionError("the polished decision is not first-stage "
+                             "feasible")
+    if counts["admm_round_batched"] <= 0:
+        raise AssertionError(f"no batched B3 launch: {counts}")
+    _record_launches(results, counts, [
+        k for k in ("pdhg_halpern_cluster", "pdhg_halpern_round")
+        if counts[k]] + ["pdhg_halpern_tile", "admm_round"], "cert_polish")
+    # B3 at the path's own operands (after the counts were read)
+    for part in ("projection", "decision"):
+        if not taken.get(part):
+            raise AssertionError(f"no B3 interval of the {part} QP taken")
+        a = taken[part][-1]
+        _hold_b3(tag, f"{part} QP", a[:10], tuple(a[10:]))
+
+
+def phase_polish_witness(memo, n_reps=2, scenarios=64, rounds=4):
+    """A second witness of the level bundle on the certify phase's ssn
+    states: ``saa_polish`` over its first ``n_reps`` replications with
+    ``scenarios`` fresh scenarios each and ``rounds`` rounds, once on the
+    card and once on the host through the plain versions (the instance,
+    the states and the drawn streams copied to the CPU), in the run's
+    float32. Prints both runs' round-1 cuts (the incumbents': no QP has
+    run yet) apart and their bounds; fails on a non-finite bound or one
+    above its SAA value estimate."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd import lower_bound
+    from sqlp_tpu_torch.sd.driver import SDSolver
+    from sqlp_tpu_torch.sd.state import state_from_numpy, state_to_numpy
+
+    prev = memo.get("certify")
+    if prev is None:
+        raise AssertionError("polish_witness reads the certify phase's "
+                             "states: run certify before it")
+    reps = prev["reps"]
+    cfg = reps.config
+    cpu = SDSolver(load_instance(reps.inst.name, dtype=cfg.jdtype,
+                                 device="cpu"),
+                   cfg, x0=np.zeros(reps.inst.n1), seed=0)
+    on_card = reps.states[:n_reps]
+    on_cpu = [state_from_numpy(state_to_numpy(st), cpu.state)
+              for st in on_card]
+    real = lower_bound._certification_streams
+    drawn = []
+
+    def streams(*a, **k):
+        if not drawn:
+            drawn.append(real(*a, **k))
+        return drawn[0]
+
+    out = {}
+    lower_bound._certification_streams = streams
+    try:
+        for where, s, states in (("card", reps, on_card),
+                                 ("host", cpu, on_cpu)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[where] = lower_bound.saa_polish(
+                s.arrays, s.scenario_model, s.espec, s.prep_sub, states,
+                s.config, obj_scale=s.obj_scale, max_rounds=rounds,
+                fresh_scenarios=scenarios)
+            torch.cuda.synchronize()
+            log(f"[polish_witness] {where}: {n_reps} x {scenarios} "
+                f"scenarios, {out[where]['rounds']} rounds in "
+                f"{time.perf_counter() - t0:.2f}s: lb_per_rep "
+                + " ".join(f"{v:.6f}" for v in out[where]["lb_per_rep"])
+                + "; saa_ub_per_rep " + " ".join(
+                    f"{v:.6f}" for v in out[where]["saa_ub_per_rep"]))
+    finally:
+        lower_bound._certification_streams = real
+    for r in range(n_reps):
+        (_, a_c, b_c), (_, a_h, b_h) = (out["card"]["cuts_per_rep"][r][0],
+                                        out["host"]["cuts_per_rep"][r][0])
+        log(f"[polish_witness] replication {r} round-1 cut: alpha "
+            f"{a_c:.6f} (card) {a_h:.6f} (host), beta apart by "
+            f"{np.abs(b_c - b_h).max():.3e} of {np.abs(b_h).max():.3e}")
+    for where, o in out.items():
+        lbs, ubs = o["lb_per_rep"], o["saa_ub_per_rep"]
+        if not np.all(np.isfinite(lbs)) or np.any(lbs > ubs + 1e-6):
+            raise AssertionError(f"{where} polish bounds {lbs} not finite "
+                                 f"or above their SAA values {ubs}")
 
 
 _STARTED = []     # every CLI subprocess this script starts
 
 
-def _cli(args):
+# a CLI run that ends by printing its process's kernel launches (every
+# count starts at 0 in a fresh process) on a line of its standard error
+_COUNTED = ("import json, sys, chip_smoke\n"
+            "from sqlp_tpu_torch.cli import main\n"
+            "rc = main(sys.argv[1:])\n"
+            "print('chip_smoke launches: ' + json.dumps(chip_smoke._counts()),"
+            " file=sys.stderr)\n"
+            "sys.exit(rc)\n")
+
+
+def _cli(args, counted=False):
     """Start a CLI subprocess of the port from the repo root, its output
     into temporary files (pipes could fill while another run is waited
-    for); returns (process, stdout file, stderr file)."""
+    for); returns (process, stdout file, stderr file). ``counted`` runs
+    it through ``_COUNTED``."""
     import tempfile
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    head = ["-c", _COUNTED] if counted else ["-m", "sqlp_tpu_torch"]
     proc = subprocess.Popen(
-        [sys.executable, "-m", "sqlp_tpu_torch", *args], stdout=out,
+        [sys.executable, *head, *args], stdout=out,
         stderr=err, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     _STARTED.append(proc)
@@ -1139,12 +1418,12 @@ def _read(f) -> str:
     return text
 
 
-def _start(tag, runs):
+def _start(tag, runs, counted=False):
     """Start a phase's CLI runs ({name: arguments}); returns the function
     that waits for them, logs each result line and returns {name:
     (stdout, stderr)}, or raises when a run failed."""
     t0 = time.perf_counter()
-    procs = {k: _cli(v) for k, v in runs.items()}
+    procs = {k: _cli(v, counted) for k, v in runs.items()}
 
     def wait():
         outs = {k: (p.wait(), _read(o), _read(e))
@@ -1297,11 +1576,84 @@ def start_cli_rep():
     return finish
 
 
+def start_cli_gap(results):
+    """The certified-gap stopping run and the periodic loop, two processes
+    at once, each counting its kernel launches: the reference bench's
+    lands_target_gap at its on-chip settings (bench.py:361-382; stopped
+    with cert_gap <= 0.01 at one of its 2 looks), and ssn at the flagship
+    settings for 200 iterations with the Monte-Carlo bound and host dual
+    sharpening every 100 (one sharpening, at 100: none at the final
+    iteration; mc_ub at 100 and 200; lb_est below mc_ub + hw)."""
+    wait = _start("cli_gap", {
+        "lands": ["solve", "lands", "--replications", "4", "--iters", "400",
+                  "--target-gap", "0.01", "--certify-every", "200",
+                  "--certify-scenarios", "1024", "--eval-samples", "8192",
+                  "--device", "cuda"],
+        "ssn": ["solve", "ssn", "--iters", "200", "--schedule", "adaptive",
+                "--rho", "1e-3", "--eval-every", "100", "--sharpen-every",
+                "100", "--sharpen-k", "32", "--device", "cuda"]},
+        counted=True)
+
+    def finish():
+        outs = wait()
+        out, err = outs["lands"]
+        rec = json.loads(out.strip().splitlines()[-1])
+        for line in err.splitlines():
+            if line.startswith("[certify]"):
+                log(f"[cli_gap] lands {line}")
+        log(f"[cli_gap] lands: stopped={rec['stopped']} iters="
+            f"{rec['iters']} route={rec['route']} cert_gap="
+            f"{rec['cert_gap']:.5f} looks={rec['looks']} lb_cert="
+            f"{rec['lb_cert']:.6f} ub={rec['compromise_mc_ub']:.6f} +- "
+            f"{rec['compromise_mc_ub_half_width']:.4f} ("
+            f"{rec['mc_ub_samples']} samples) time_to_certified_gap_s="
+            f"{rec['time_to_certified_gap_s']}")
+        if not (rec["stopped"] and rec["cert_gap"] <= 0.01
+                and rec["looks"] == 2):
+            raise AssertionError(f"lands --target-gap 0.01 did not stop at "
+                                 f"a certified gap <= 0.01 in 2 looks: {rec}")
+        out, err = outs["ssn"]
+        sharpened = re.findall(r"iter (\d+): sharpened (.*)", err)
+        evals = re.findall(r"iter (\d+): mc_ub=(\S+) \(\+-(\S+)\)", err)
+        for it, rest in sharpened:
+            log(f"[cli_gap] ssn iter {it}: sharpened {rest}")
+        for it, ub, hw in evals:
+            log(f"[cli_gap] ssn iter {it}: mc_ub={ub} +- {hw}")
+        m = re.search(r"lb_est=(\S+) mc_ub=(\S+) \(95% \+- (\S+),", out)
+        if not m:
+            raise AssertionError("ssn periodic run printed no bounds")
+        lb, ub, hw = map(float, m.groups())
+        if [int(it) for it, _ in sharpened] != [100]:
+            raise AssertionError(f"ssn sharpened at {sharpened}, not once at "
+                                 f"iteration 100")
+        if [int(it) for it, _, _ in evals] != [100, 200]:
+            raise AssertionError(f"ssn evaluated at {evals}, not at 100 and "
+                                 f"200")
+        if not lb <= ub + hw:
+            raise AssertionError(f"ssn lb_est {lb} above mc_ub + hw "
+                                 f"{ub + hw}")
+        for name, (out, err) in outs.items():
+            m = re.search(r"chip_smoke launches: (\{.*\})", err)
+            if m is None:
+                raise AssertionError(f"cli_gap {name}: no launch counts")
+            counts = json.loads(m.group(1))
+            log(f"[cli_gap] {name} launches: {json.dumps(counts)}")
+            b1 = [k for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
+                              "pdhg_halpern_tile") if counts[k]]
+            if not b1:
+                raise AssertionError(f"cli_gap {name}: B1 never launched")
+            _record_launches(results, counts, b1 + ["admm_round"],
+                             f"cli_gap_{name}")
+    return finish
+
+
 # the CLI phases start their subprocesses when they are reached and are
 # waited for together, before the next phase that uses the card in this
 # process (or at the end): the lands runs are host-bound and overlap
-CLI_PHASES = {"cli": start_cli, "cli_rep": start_cli_rep,
-              "cli_cert": start_cli_cert}
+CLI_PHASES = {"cli": lambda results: start_cli(),
+              "cli_rep": lambda results: start_cli_rep(),
+              "cli_cert": lambda results: start_cli_cert(),
+              "cli_gap": start_cli_gap}
 
 
 def run_phase(ph, args, results, memo):
@@ -1335,7 +1687,12 @@ def run_phase(ph, args, results, memo):
     elif ph == "small":
         phase_small(results)
     elif ph == "certify":
-        phase_certify(results, args.cert_iters, args.cert_eval_samples)
+        memo["certify"] = phase_certify(results, args.cert_iters,
+                                        args.cert_eval_samples)
+    elif ph == "cert_polish":
+        phase_cert_polish(results, memo)
+    elif ph == "polish_witness":
+        phase_polish_witness(memo)
     elif ph == "profile_ef":
         phase_profile_ef()
     else:
@@ -1355,7 +1712,7 @@ def main() -> int:
                     help="samples of the certified path's MC panels")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "certify,cli,cli_rep,cli_cert")
+                    "certify,cert_polish,cli,cli_rep,cli_cert,cli_gap")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1394,7 +1751,8 @@ def main() -> int:
     try:
         for ph in phases:
             if ph in CLI_PHASES:
-                pending.append((ph, time.perf_counter(), CLI_PHASES[ph]()))
+                pending.append((ph, time.perf_counter(),
+                                CLI_PHASES[ph](results)))
             else:
                 join()
                 run_phase(ph, args, results, memo)

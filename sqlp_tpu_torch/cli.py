@@ -1,30 +1,40 @@
 """Command-line entry point of the PyTorch port.
 
 Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-189,
-``_solve_replicated`` :192-293 without ``--target-gap``, ``cmd_ef``
-:296-318, ``cmd_evaluate`` :321-333, the parser :341-470):
+``_solve_replicated`` :192-293, ``cmd_ef`` :296-318, ``cmd_evaluate``
+:321-333, the parser :341-470):
 
     python -m sqlp_tpu_torch solve ssn --iters 3000 --schedule adaptive --rho 1e-3
+    python -m sqlp_tpu_torch solve ssn --iters 3000 --eval-every 500 --stop-gap 0.01
     python -m sqlp_tpu_torch solve ssn --replications 8 --certify
+    python -m sqlp_tpu_torch solve lands --replications 4 --target-gap 0.01
     python -m sqlp_tpu_torch ef lands --scenarios 100
     python -m sqlp_tpu_torch evaluate transship --samples 20000
 
 runs on the chosen device (``--device``, default ``cuda``; there is no
-silent CPU fallback). ``solve`` runs SD and ends with the Monte-Carlo upper
-bound and its confidence half-width; with ``--replications R`` it runs R
-replications in lockstep and ends with the compromise decision and its
-bound, and with ``--certify`` also with a certified statistical lower
-bound, the decision picked among the compromise and the certification's
-EF argmins, and the certified optimality gap (:func:`certify_replications`).
-``ef`` solves a sampled extensive form, ``evaluate`` estimates the expected
-cost of a first-stage decision. Flags of the reference CLI that the port
-does not carry yet are accepted by the parser and refused with the ROADMAP
-item that will bring them.
+silent CPU fallback). ``solve`` runs SD in chunks; at the chunk
+boundaries it logs (``--log-every``), estimates the Monte-Carlo upper
+bound (``--eval-every``), sharpens the dual pool with host-exact duals
+(``--sharpen-every``) and applies the stopping rules (``--stop-gap``,
+``--stop-stall-window``), each exactly at the multiples of its own
+period, and ends with the Monte-Carlo upper bound and its confidence
+half-width. With ``--replications R`` it runs R replications in lockstep
+and ends with the compromise decision and its bound; with ``--certify``
+also with a certified statistical lower bound, the decision picked among
+the compromise and the certification's EF argmins, and the certified
+optimality gap (:func:`certify_replications`); with ``--target-gap`` it
+certifies every ``--certify-every`` iterations and stops at the target
+certified gap, ending with one JSON line. ``ef`` solves a sampled
+extensive form, ``evaluate`` estimates the expected cost of a first-stage
+decision. Flags of the reference CLI that the port does not carry yet are
+accepted by the parser and refused with the ROADMAP item that will bring
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -32,11 +42,8 @@ import numpy as np
 
 # flag -> (the values the port takes, ROADMAP item that brings the rest)
 _REFUSED = {
-    "target_gap": ((0.0,), "A12b (certified-gap stopping)"),
-    "certify_method": (("ef", "model"),
-                       "A12b (the level-bundle polish route)"),
     "mesh": ((0,), "A14 (multi-device)"),
-    "proposal_sto": ((None,), "A13 (importance sampling proposal)"),
+    "proposal_sto": ((None,), "A13b (importance sampling proposal)"),
 }
 
 
@@ -85,6 +92,7 @@ def cmd_solve(args) -> int:
     from sqlp_tpu_torch.models.instance import load_instance
     from sqlp_tpu_torch.sd.driver import SDSolver
     from sqlp_tpu_torch.sd.state import default_epigraph_spec
+    from sqlp_tpu_torch.sd.stopping import GapRule, LowerBoundStabilization
 
     if args.replications > 1 and (args.mesh or args.proposal_sto):
         # the reference's own refusal (sqlp_tpu/cli.py:75-82)
@@ -93,9 +101,10 @@ def cmd_solve(args) -> int:
               "on a single device program); drop one of the flags",
               file=sys.stderr)
         return 2
-    if args.certify and args.replications < 2:
-        print("error: --certify needs --replications R > 1 (the bound is a "
-              "Student-t interval over R replications)", file=sys.stderr)
+    if (args.certify or args.target_gap) and args.replications < 2:
+        print("error: --certify and --target-gap need --replications R > 1 "
+              "(the bound is a Student-t interval over R replications)",
+              file=sys.stderr)
         return 2
     device = _device(args)
     if device is None:
@@ -130,17 +139,55 @@ def cmd_solve(args) -> int:
           + (" (auto)" if args.epi_lb is None
              else f" (user: {args.epi_lb:g})"), flush=True)
 
+    stab = LowerBoundStabilization(window=args.stop_stall_window,
+                                   rel_tol=args.stop_stall_tol) \
+        if args.stop_stall_window else None
+    gap_rule = GapRule(rel_gap=args.stop_gap) if args.stop_gap else None
+    if gap_rule and not args.eval_every:
+        print("--stop-gap needs --eval-every to estimate the upper bound; "
+              "ignoring", file=sys.stderr)
+        gap_rule = None
+    # iterations run in chunks that end at the next multiple of any period
+    # that is set, so every periodic action fires at the multiples of its
+    # own period; the stall rule reads the multiples of the smallest one
+    periods = [p for p in (args.log_every, args.eval_every,
+                           args.sharpen_every) if p]
+    base = min(periods) if periods else args.iters
     t0 = time.time()
-    period = args.log_every if args.log_every else args.iters
     done = 0
     while done < args.iters:
-        n = min(period, args.iters - done)
-        last = solver.run(n)
-        done += n
-        if args.log_every:
-            print(f"iter {int(last['it'])}: lb_est={last['cand_est']:.4f} "
+        nxt = min([(done // p + 1) * p for p in periods] + [args.iters])
+        last = solver.run(nxt - done)
+        done = nxt
+        it = int(last["it"])
+        stopped = None
+        if args.log_every and done % args.log_every == 0:
+            print(f"iter {it}: lb_est={last['cand_est']:.4f} "
                   f"rho={last['rho']:.4g} duals={int(last['n_duals'])} "
                   f"cuts={int(last['n_cuts_live'])}", file=sys.stderr)
+        if args.eval_every and done % args.eval_every == 0:
+            # the stop-gap test inflates ub by its sampling half-width, so
+            # a lucky draw cannot stop SD early
+            ub, ub_hw, _ = solver.evaluate_ci(
+                min_samples=args.eval_samples, max_samples=args.eval_samples,
+                seed=args.seed + it, sampling=args.sampling)
+            print(f"iter {it}: mc_ub={ub:.4f} (+-{ub_hw:.4f})",
+                  file=sys.stderr)
+            if gap_rule and gap_rule.check(solver.lower_estimate, ub,
+                                           ub_half_width=ub_hw):
+                stopped = f"gap <= {args.stop_gap:g} at iter {it}"
+        if args.sharpen_every and done % args.sharpen_every == 0 \
+                and done < args.iters:
+            sh = solver.sharpen_duals_host(k=args.sharpen_k)
+            print(f"iter {it}: sharpened {sh['n_solved']} scenarios "
+                  f"(+{sh['n_new']} exact duals, max argmax slack "
+                  f"{sh['max_slack']:.3g})", file=sys.stderr)
+        if stab and (done % base == 0 or done == args.iters) \
+                and stab.update(float(last["inc_est"])):
+            stopped = stopped or f"incumbent estimate stabilized at iter {it}"
+        if stopped:
+            print(f"stopping rule: {stopped}", file=sys.stderr)
+            break
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.time() - t0
@@ -170,6 +217,27 @@ def _solve_replicated(args, config, inst, espec, x0, device) -> int:
     t0 = time.time()
     s = SDReplications(inst, config, n_replications=R, espec=espec, x0=x0,
                        seed=args.seed, n_epi=args.epigraphs)
+    if args.target_gap:
+        # certified-gap stopping: SD in rounds, a certified bound every
+        # --certify-every iterations (free model route first, escalating
+        # to the configured route), stop at the target certified gap
+        method = args.certify_method if args.certify else \
+            ("polish" if inst.n1 <= 32 else "ef")
+        kw = ({"fresh_scenarios": args.certify_scenarios}
+              if method in ("ef", "polish") else {})
+        res = s.solve_to_certified_gap(
+            args.target_gap, args.iters, certify_every=args.certify_every,
+            method=method, compromise_rho=args.compromise_rho,
+            max_ub_samples=max(args.eval_samples, 65536),
+            seed=args.seed + 7000, verbose=True, **kw)
+        x_comp = res.pop("x_compromise")
+        print(f"{'stopped at' if res['stopped'] else 'exhausted'} "
+              f"{res['iters']} iters in {time.time() - t0:.1f}s "
+              f"(certified gap {res['cert_gap']:.5f}, "
+              f"target {args.target_gap:g})", file=sys.stderr)
+        print(f"x_compromise={np.round(x_comp, 6).tolist()}")
+        print(json.dumps(res))
+        return 0
     s.run(args.iters)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -221,8 +289,8 @@ def certify_replications(s, x_comp, ub_comp: float, ub_hw: float,
     """The certified optimality gap of a replicated run
     (sqlp_tpu/cli.py:252-293): a Student-t lower bound from the
     replications (``s.certified_lower_bound``, fresh Latin-hypercube
-    streams of ``fresh_scenarios`` under the EF route), then, under the EF
-    route, the decision among the compromise (``x_comp``, whose bound
+    streams of ``fresh_scenarios`` under the EF and polish routes), then,
+    under the EF route, the decision among the compromise (``x_comp``, whose bound
     ``ub_comp`` +- ``ub_hw`` the caller measured), the EF argmins' average
     and the first two argmins, picked on a shared stratified panel of
     min(16384, ``eval_samples``) samples and re-evaluated on an
@@ -234,7 +302,8 @@ def certify_replications(s, x_comp, ub_comp: float, ub_hw: float,
     """
     seconds = {"select": 0.0, "final": 0.0}
     t0 = time.perf_counter()
-    kw = {"fresh_scenarios": fresh_scenarios} if method == "ef" else {}
+    kw = ({"fresh_scenarios": fresh_scenarios}
+          if method in ("ef", "polish") else {})
     cert = s.certified_lower_bound(method=method, **kw)
     seconds["certify"] = time.perf_counter() - t0
     out = {"cert": cert, "decision": "compromise", "x": x_comp,
@@ -380,13 +449,45 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--certify-method", default="ef",
                     choices=["ef", "polish", "model"],
                     help="per-replication bound: 'ef' (extensive-form dual "
-                         "certificates) or 'model' (the SD cut model's "
-                         "minimum); 'polish' is refused (ROADMAP A12b)")
+                         "certificates: high-dimensional first stages, "
+                         "e.g. ssn), 'polish' (level bundle: exact on "
+                         "low-dimensional instances), 'model' (free; "
+                         "where the SD cut model is already tight, e.g. "
+                         "storm)")
     ps.add_argument("--certify-scenarios", type=int, default=3000,
                     help="fresh Latin-hypercube certification scenarios per "
                          "replication (0: certify the SD stream)")
-    # reference flags the port refuses for now (see _REFUSED)
-    ps.add_argument("--target-gap", type=float, default=0.0)
+    ps.add_argument("--target-gap", type=float, default=0.0,
+                    help="with --replications > 1: run SD in rounds, "
+                         "certify a statistical lower bound every "
+                         "--certify-every iterations (free cut-model route "
+                         "first, escalating to --certify-method when it "
+                         "misses) and stop once the certified optimality "
+                         "gap crosses this target; the confidence is split "
+                         "over the planned looks. Unlike --stop-gap this "
+                         "stops on a valid bound, not the lb_est proxy")
+    ps.add_argument("--certify-every", type=int, default=0,
+                    help="certification cadence (iterations) for "
+                         "--target-gap; 0 = four rounds across --iters")
+    ps.add_argument("--eval-every", type=int, default=0,
+                    help="Monte-Carlo upper bound every this many "
+                         "iterations (0: only at the end)")
+    ps.add_argument("--stop-gap", type=float, default=0.0,
+                    help="stop when (mc_ub - lb_est) relative gap falls "
+                         "below this (needs --eval-every)")
+    ps.add_argument("--stop-stall-window", type=int, default=0,
+                    help="stop when the incumbent estimate moved less than "
+                         "--stop-stall-tol over this many checks (one at "
+                         "each multiple of the smallest period set)")
+    ps.add_argument("--stop-stall-tol", type=float, default=1e-4)
+    ps.add_argument("--sharpen-every", type=int, default=0,
+                    help="every N iterations re-solve the home scenarios "
+                         "of the pool's top-K argmax winners exactly on "
+                         "the host and push the exact basic duals into the "
+                         "pool (not at the final iteration); 0 = off")
+    ps.add_argument("--sharpen-k", type=int, default=32,
+                    help="top-K winners per --sharpen-every round")
+    # a reference flag the port refuses for now (see _REFUSED)
     ps.add_argument("--proposal-sto", default=None)
     common(ps)
     ps.set_defaults(fn=cmd_solve)

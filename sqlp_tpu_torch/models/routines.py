@@ -3,7 +3,9 @@
 Port of record: ``sqlp_tpu/models/routines.py:28-330`` (``solve_lp_host``,
 ``project_first_stage``, ``recourse_lower_bound``), unchanged numpy code;
 tensor arguments are read back to the host first. This is the exact
-oracle and fallback of the batched PDHG solver (ops/pdhg.py).
+oracle and fallback of the batched PDHG solver (ops/pdhg.py);
+``oracle_solve_batch`` (:350-415) is that oracle in ``solve_batch``'s
+shape, a test aid.
 
 Dual sign convention matches JuMP's for MIN problems: the dual of a
 constraint is d(objective)/d(rhs), so duals of '>=' rows are >= 0 and duals
@@ -314,3 +316,52 @@ def recourse_lower_bound(arrays, scenario_model, normal_sigmas: float = 10.0
                       f"explicit epigraph lower bound")
         return float("-inf")
     return float(res.fun) + const_term
+
+
+def oracle_solve_batch(prep, H, config=None, Y0=None, L0=None, Q=None):
+    """Exact stand-in for ``ops.pdhg.solve_batch``: every row of the RHS
+    panel solved by host HiGHS. For parity tests only (monkeypatch it
+    over ``sqlp_tpu_torch.sd.algorithm.solve_batch``): a trajectory driven
+    by exact simplex duals isolates the SD semantics from the first-order
+    solver's tolerance. Slow by construction.
+
+    The stage LP is rebuilt from the PreparedLP's scaling (K =
+    diag(row_scale) (flip * W) diag(col_scale); q, lb, ub column-scaled).
+    Returns (obj [B], Y [B, n], Pi [B, m], stats) like ``solve_batch``,
+    on the panel's device, every element certified.
+    """
+    import torch
+
+    B, m = H.shape
+    dt = prep.K.dtype
+    dev = prep.K.device
+    f = lambda t: _np(t, np.float64)
+    rs, cs, flip = f(prep.row_scale), f(prep.col_scale), f(prep.flip)
+    W = f(prep.K) / rs[:, None] / cs[None, :] * flip[:, None]
+    q = f(prep.q) / cs
+    lb = f(prep.lb) * cs
+    ub = f(prep.ub) * cs
+    senses = np.where(_np(prep.is_eq), SENSE_E,
+                      np.where(flip < 0, SENSE_L, SENSE_G))
+    Hn = f(H)
+    Qn = None if Q is None else f(Q)
+    objs = np.zeros(B)
+    Y = np.zeros((B, W.shape[1]))
+    Pi = np.zeros((B, m))
+    for b in range(B):
+        objs[b], Y[b], Pi[b] = solve_lp_host(
+            q if Qn is None else Qn[b], W, Hn[b], senses, lb, ub)
+    t = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    stats = {
+        "pdhg_rounds": zero_i,
+        "pdhg_phase_rounds": torch.zeros(1, dtype=torch.int32, device=dev),
+        "pdhg_iters": zero_i,
+        "pdhg_err_max": torch.zeros((), dtype=dt, device=dev),
+        "pdhg_converged": torch.ones((), dtype=torch.bool, device=dev),
+        "pdhg_omega": torch.ones((), dtype=dt, device=dev),
+        "pdhg_done": torch.ones(B, dtype=torch.bool, device=dev),
+        "pdhg_valid": torch.ones(B, dtype=torch.bool, device=dev),
+        "pdhg_err": torch.zeros(B, dtype=dt, device=dev),
+    }
+    return t(objs), t(Y), t(Pi), stats

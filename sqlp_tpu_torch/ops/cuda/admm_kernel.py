@@ -25,6 +25,8 @@ from sqlp_tpu_torch.ops.cuda import build
 # launches of the CUDA kernel in this process (the plain version does not
 # count); chip_smoke.py resets it before driving the main path
 launches = 0
+# the launches that stepped more than one master (an R-batched solve)
+batched_launches = 0
 
 _SMEM_MAX = 227 * 1024      # dynamic shared memory one block may use (sm_90)
 # CTAs per master (chip_smoke.py --phases sweep; PERF.md): 8 measured
@@ -92,7 +94,7 @@ def admm_round(As, M, Minv, g, lc, uc, rho, z, zeta, mu, n_inner: int,
     launch the kernel, CPU tensors run the plain version. A refused launch
     raises.
     """
-    global launches
+    global launches, batched_launches
     if As.device.type == "cpu":
         if As.dim() == 3:
             outs = [admm_round_ref(*(a[b] for a in (As, M, Minv, g, lc, uc,
@@ -143,4 +145,5 @@ def admm_round(As, M, Minv, g, lc, uc, rho, z, zeta, mu, n_inner: int,
                   float(sigma), stream)
     build.check(code, f"admm_round (cluster of {C})")
     launches += 1
+    batched_launches += int(nb > 1)
     return zo, zetao, muo

@@ -54,8 +54,19 @@ def _nanmax(a: float, b: float) -> float:
 def _inv(M: torch.Tensor) -> torch.Tensor:
     """Explicit inverse over the trailing two axes; a singular matrix
     yields NaNs (as jnp.linalg.inv does) instead of raising, so the
-    callers' finiteness guards reject the candidate."""
-    Mi, info = torch.linalg.inv_ex(M)
+    callers' finiteness guards reject the candidate. On CPU tensors the
+    call runs under one intra-op thread (MKL's batched f64 LU never
+    returns with more, as in ``ops/crossover.py:_batched_solve``), and the
+    caller's count is restored after it."""
+    if M.device.type == "cpu":
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            Mi, info = torch.linalg.inv_ex(M)
+        finally:
+            torch.set_num_threads(threads)
+    else:
+        Mi, info = torch.linalg.inv_ex(M)
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(Mi, math.nan), Mi)
 

@@ -2,19 +2,24 @@
 
 Port of record: ``sqlp_tpu/sd/driver.py:SDSolver`` (``__init__`` :45-187,
 ``step`` :198, ``step_scenarios`` :206-234, ``run`` :250-304,
-``_warmstart_pool`` :483, ``_prep_sub64`` :493-508, ``_recourse_objs``
-:510-678, ``evaluate`` :689-715, ``evaluate_ci`` :717-819) and
-``cut_model_lower_bound`` :322-329, ``select_decision`` :364-396) and
-``SDReplications`` (:843-940, ``certified_lower_bound`` :941-1032 for the
-EF and model routes, 1165-1186).
+``cut_model_lower_bound`` :322-329, ``polish_decision`` :331-347,
+``saa_lower_bound`` :349-362, ``select_decision`` :364-396,
+``sharpen_duals_host`` :398-481, ``_warmstart_pool`` :483, ``_prep_sub64``
+:493-508, ``_recourse_objs`` :510-678, ``evaluate`` :689-715,
+``evaluate_ci`` :717-819) and ``SDReplications`` (:843-940,
+``certified_lower_bound`` :941-1032, ``solve_to_certified_gap``
+:1034-1164, 1165-1186).
 
 Every tensor lives on the instance's device; the solver owns an explicit
 ``torch.Generator`` on that device, seeded from ``seed``, for the scenario
 stream and the reservoir (``SDReplications``: one per replication, seeded
-``seed + r``). The MC evaluators seed their own generators. Not ported
-(refused by the CLI, absent here): meshes, importance-sampling proposals,
-checkpoint I/O, the polish routes of the certified bound and
-``solve_to_certified_gap`` (ROADMAP A12b).
+``seed + r``). The MC evaluators seed their own generators. Where the
+reference asserts a precondition a caller can reach, the port raises
+ValueError. Beyond the reference: with ``antithetic_reps`` every
+per-replication array, ``lb_per_rep`` included, keeps length R, and
+``solve_to_certified_gap`` splits its confidence over its planned looks.
+Not ported (refused by the CLI, absent here): meshes, importance-sampling
+proposals and checkpoint I/O.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import sys
+import time
 import warnings
 from typing import Callable, Dict, List, Optional
 
@@ -38,9 +45,12 @@ from sqlp_tpu_torch.models.scenario import (cost_panel, sample_deltas,
 from sqlp_tpu_torch.ops.pdhg import prepare_lp, solve_batch
 from sqlp_tpu_torch.sd.algorithm import (_scenario_rhs, sd_run,
                                          sd_run_replicated, sd_step)
+from sqlp_tpu_torch.sd.compromise import (compromise_decision,
+                                          polish_decision)
+from sqlp_tpu_torch.sd.dual_pool import push_duals
 from sqlp_tpu_torch.sd.lower_bound import (certified_lower_bound,
                                            cut_model_min, saa_ef_bound,
-                                           t_lower_bound)
+                                           saa_polish, t_lower_bound)
 from sqlp_tpu_torch.sd.state import (EpigraphSpec, SDState,
                                      default_epigraph_spec, init_state,
                                      stack_states, state_at, state_to_numpy)
@@ -220,6 +230,98 @@ class SDSolver:
         return cut_model_min(self.arrays, self.espec, self.state,
                              obj_scale=self.obj_scale)
 
+    def polish_decision(self, x0, n_scenarios: int = 8192,
+                        rounds: int = 12, rho: float = 20.0,
+                        seed: int = 4242, **kw):
+        """Proximal-bundle polish of a first-stage decision on one fresh
+        stratified panel (``sd/compromise.py:polish_decision``), each
+        round's values certified by the evaluator's escalation ladder.
+        ``rho`` is in user objective units. Evaluate the returned x on an
+        independent sample for an unbiased cost estimate."""
+        return polish_decision(self.arrays, self.scenario_model,
+                               self.prep_sub, self.config, x0,
+                               obj_scale=self.obj_scale,
+                               n_scenarios=n_scenarios, rounds=rounds,
+                               rho=rho / self.obj_scale, seed=seed,
+                               values_fn=self._recourse_objs, **kw)
+
+    def saa_lower_bound(self, max_rounds: int = 24, gap_tol: float = 1e-4,
+                        extra_scenarios: int = 0, seed: int = 9000) -> Dict:
+        """The level-bundle-polished deterministic bound on this run's SAA
+        optimum (``sd/lower_bound.py:saa_polish``); ``lb_per_rep[0]`` is
+        the bound."""
+        return saa_polish(self.arrays, self.scenario_model, self.espec,
+                          self.prep_sub, [self.state], self.config,
+                          obj_scale=self.obj_scale, max_rounds=max_rounds,
+                          gap_tol=gap_tol, extra_scenarios=extra_scenarios,
+                          seed=seed)
+
+    def sharpen_duals_host(self, k: int = 32, x=None) -> Dict:
+        """Host-exact dual sharpening: re-solve with HiGHS the home
+        scenarios of the pool's top-``k`` vertices by usage score (each
+        one's home: the stored scenario where it scores highest, at x,
+        default the incumbent) and push the exact basic duals into the
+        pool. Any dual-feasible vector is a valid pool entry, so cut
+        validity is untouched.
+
+        Returns ``n_solved``, ``n_new`` (entries the dedup accepted) and
+        ``mean_slack`` / ``max_slack``: the exact optimum less the pool's
+        argmax value on the re-solved scenarios (scaled objective units).
+        Raises ValueError on random-cost instances, whose pools carry
+        per-scenario admissibility."""
+        if self.inst.scenario_model.has_cost:
+            raise ValueError("host dual sharpening is not defined on "
+                             "random-cost instances: their pools carry "
+                             "per-scenario admissibility")
+        none = {"n_solved": 0, "n_new": 0, "mean_slack": 0.0,
+                "max_slack": 0.0}
+        state = self.state
+        nd = int(state.n_duals)
+        if nd == 0:
+            return none
+        duals = np.asarray(_host(state.duals), np.float64)[:nd]
+        score = np.asarray(_host(state.duals_score), np.float64)[:nd]
+        x = np.asarray(self.x_incumbent if x is None else x, np.float64)
+        dt = self.config.jdtype
+        n_scen = _host(state.n_scen)
+        x_t = torch.as_tensor(x, dtype=dt, device=self.device)
+        H = [np.asarray(_host(_scenario_rhs(
+            self.arrays, self.scenario_model,
+            state.scen_deltas[e, :int(n_scen[e])], x_t)), np.float64)
+            for e in range(n_scen.shape[0]) if int(n_scen[e]) > 0]
+        if not H:
+            return none
+        H = np.concatenate(H)
+        winners = np.argsort(score)[::-1][:min(k, nd)]
+        home = np.unique(np.argmax(duals[winners] @ H.T, axis=1))
+        a = self.arrays
+        q, W = _host(a.q).astype(np.float64), _host(a.W).astype(np.float64)
+        s2 = _host(a.senses2)
+        lb, ub = _host(a.lb2).astype(np.float64), \
+            _host(a.ub2).astype(np.float64)
+        pis, slacks = [], []
+        val_pool = (duals @ H[home].T).max(axis=0)     # argmax value now
+        for j, s_idx in enumerate(home):
+            try:
+                obj, _, pi = solve_lp_host(q, W, H[s_idx], s2, lb, ub)
+            except RuntimeError:
+                continue                      # infeasible at this x: skip
+            pis.append(pi)
+            slacks.append(obj - val_pool[j])
+        if not pis:
+            return none
+        out = push_duals(
+            state.duals, state.duals_rounded, state.n_duals,
+            torch.as_tensor(np.stack(pis), dtype=dt, device=self.device),
+            state.duals_dropped, sig_bits=self.config.dual_sig_bits,
+            score=state.duals_score)
+        self.state = dataclasses.replace(
+            state, duals=out[0], duals_rounded=out[1], n_duals=out[2],
+            duals_dropped=out[3], duals_score=out[4])
+        return {"n_solved": len(pis), "n_new": int(out[2]) - nd,
+                "mean_slack": float(np.mean(slacks)),
+                "max_slack": float(np.max(slacks))}
+
     def select_decision(self, candidates: Dict, n_samples: int = 16384,
                         seed: int = 31000, batch: int = 4096) -> Dict:
         """Pick the cheapest first-stage decision among ``candidates``
@@ -269,24 +371,32 @@ class SDSolver:
             self._prep_sub64_cache = cached
         return cached
 
-    def _recourse_objs(self, H: torch.Tensor, Q=None) -> np.ndarray:
+    def _recourse_objs(self, H: torch.Tensor, Q=None, obj0=None,
+                       valid0=None) -> np.ndarray:
         """Recourse objectives for an RHS panel, certified per element:
         elements the first solve could not certify to ``valid_tol`` walk
         the escalation ladder — a pool-warm-started re-solve, then an f64
         re-solve (the f64 instance of the same kernel on the card), then
-        the exact host solver."""
+        the exact host solver. With ``obj0`` / ``valid0`` (a solve of this
+        panel that already ran) only its uncertified residue walks the
+        ladder."""
         dev = self.device
         dt = self.config.jdtype
         pdhg = self.config.pdhg
         Qn = None if Q is None else np.asarray(_host(Q), np.float64)
-        L0 = None
         pool = self._warmstart_pool()
-        if pool is not None and not self.inst.scenario_model.has_cost:
-            pool_t = torch.as_tensor(pool, dtype=dt, device=dev)
-            L0 = pool_t[torch.argmax(pool_t @ H.to(dt).T, dim=0)]
-        obj, _, _, stats = solve_batch(self.prep_sub, H, pdhg, L0=L0, Q=Q)
-        vals = np.array(_host(obj), np.float64)
-        valid = _host(stats["pdhg_valid"])
+        if obj0 is not None:
+            vals = np.array(_host(obj0), np.float64)
+            valid = _host(valid0)
+        else:
+            L0 = None
+            if pool is not None and not self.inst.scenario_model.has_cost:
+                pool_t = torch.as_tensor(pool, dtype=dt, device=dev)
+                L0 = pool_t[torch.argmax(pool_t @ H.to(dt).T, dim=0)]
+            obj, _, _, stats = solve_batch(self.prep_sub, H, pdhg, L0=L0,
+                                           Q=Q)
+            vals = np.array(_host(obj), np.float64)
+            valid = _host(stats["pdhg_valid"])
         bad = np.flatnonzero(~valid)
         Hn = np.asarray(_host(H), np.float64)
         if bad.size:
@@ -536,43 +646,232 @@ class SDReplications(SDSolver):
 
     def certified_lower_bound(self, confidence: float = 0.95,
                               method: str = "ef",
+                              polish_rounds: int = 24,
+                              gap_tol: float = 1e-4,
                               extra_scenarios: int = 0,
                               antithetic_reps: bool = False,
                               seed: int = 9000, **kw) -> Dict:
         """Student-t confidence lower bound on the true optimum from one
         deterministic bound per replication (sd/lower_bound.py):
 
-          "ef"    (default) one extensive-form solve per replication, all
-                  R batched on the device, and the aggregate dual cut's
-                  exact minimum (``saa_ef_bound``; ``kw`` goes there, e.g.
-                  ``fresh_scenarios``);
-          "model" the SD run's final cut-model minimum alone.
+          "ef"        (default) one extensive-form solve per replication,
+                      all R batched on the device, and the aggregate dual
+                      cut's exact minimum (``saa_ef_bound``);
+          "polish"    level-bundle rounds on the certification streams
+                      (``saa_polish``, ``polish_rounds``, ``gap_tol``);
+          "ef_polish" the polish over the same streams (same seed), its
+                      cuts merged into the EF bound model;
+          "model"     the SD run's final cut-model minimum alone.
 
-        Returns lb_cert / lb_mean / lb_half_width / lb_per_rep, and for
-        "ef" the route's per-replication diagnostics."""
-        if method in ("polish", "ef_polish"):
-            raise NotImplementedError(
-                f"method={method!r} (the level-bundle polish) is not ported "
-                f"to sqlp_tpu_torch yet (ROADMAP A12b)")
+        ``kw`` goes to the route (``fresh_scenarios``, ``fresh_sampling``;
+        the polish's ``level_lambda`` / ``qp_rows_cap``).
+        ``antithetic_reps=True`` (fresh streams, even R, not the model
+        route) certifies replication 2k+1 on the complement of 2k's stream
+        and takes the interval over the R/2 pair means
+        (``lb_pair_means``); ``lb_per_rep`` keeps the R per-replication
+        bounds, as every other per-replication array does.
+
+        Returns lb_cert / lb_mean / lb_half_width / lb_per_rep and the
+        route's diagnostics."""
+        if method not in ("ef", "polish", "ef_polish", "model"):
+            raise ValueError(f"unknown certification method {method!r}")
         if antithetic_reps:
-            raise NotImplementedError(
-                "antithetic_reps (paired certification streams) is not "
-                "ported to sqlp_tpu_torch yet (ROADMAP A12b)")
-        if method == "model":
+            if kw.get("fresh_scenarios", 0) <= 0:
+                raise ValueError("antithetic_reps requires fresh_scenarios "
+                                 "> 0 (it pairs fresh certification "
+                                 "streams)")
+            if method == "model":
+                raise ValueError("antithetic_reps does not apply to the "
+                                 "model route, which certifies the SD "
+                                 "streams themselves")
+            if self.n_replications % 2:
+                raise ValueError(f"antithetic_reps needs an even number of "
+                                 f"replications, got {self.n_replications}")
+            kw["fresh_pairing"] = "antithetic"
+
+        def aggregate(per_rep):
+            out = t_lower_bound(per_rep, confidence,
+                                pair_means=antithetic_reps)
+            if antithetic_reps:
+                out["lb_pair_means"] = out["lb_per_rep"]
+                out["lb_per_rep"] = np.asarray(per_rep, np.float64)
+            return out
+
+        if method == "model" or (method == "polish" and polish_rounds <= 0):
             return certified_lower_bound(
                 self.arrays, self.espec, self.states,
                 obj_scale=self.obj_scale, confidence=confidence)
-        if method != "ef":
-            raise ValueError(f"unknown certification method {method!r}")
+        polish_kw = {k: v for k, v in kw.items()
+                     if k in ("fresh_scenarios", "fresh_sampling",
+                              "fresh_pairing", "level_lambda",
+                              "qp_rows_cap")}
+        pol = None
+        if method in ("polish", "ef_polish"):
+            pol = saa_polish(
+                self.arrays, self.scenario_model, self.espec,
+                self.prep_sub, self.states, self.config,
+                obj_scale=self.obj_scale, max_rounds=polish_rounds,
+                gap_tol=gap_tol, extra_scenarios=extra_scenarios,
+                seed=seed, **polish_kw)
+        if method == "polish":
+            out = aggregate(pol["lb_per_rep"])
+            out["saa_ub_per_rep"] = pol["saa_ub_per_rep"]
+            out["polish_rounds"] = pol["rounds"]
+            out["polish_gap_per_rep"] = pol["gap_per_rep"]
+            out["polish_round_seconds"] = pol["round_seconds"]
+            out["dual_infeas_per_rep"] = pol["dual_infeas_per_rep"]
+            out["n_scenarios"] = pol["n_scenarios"]
+            return out
+        ef_kw = {k: v for k, v in kw.items()
+                 if k not in ("level_lambda", "qp_rows_cap")}
+        if pol is not None:
+            # the bundle cuts patch the single aggregate EF cut's slope
+            # dip away from its argmin
+            ef_kw["extra_cuts"] = pol["cuts_per_rep"]
         ef = saa_ef_bound(self.arrays, self.scenario_model, self.espec,
                           self.states, self.config,
                           obj_scale=self.obj_scale,
-                          extra_scenarios=extra_scenarios, seed=seed, **kw)
-        out = t_lower_bound(ef["lb_per_rep"], confidence)
+                          extra_scenarios=extra_scenarios, seed=seed,
+                          **ef_kw)
+        out = aggregate(ef["lb_per_rep"])
         for k, v in ef.items():
             if k != "lb_per_rep":
                 out[k] = v
+        if pol is not None:
+            out["polish_lb_per_rep"] = pol["lb_per_rep"]
+            out["polish_rounds"] = pol["rounds"]
+            out["polish_round_seconds"] = pol["round_seconds"]
         return out
+
+    def solve_to_certified_gap(
+            self, target_gap: float, max_iters: int,
+            certify_every: int = 0, method: str = "auto",
+            confidence: float = 0.95, compromise_rho: float = 1.0,
+            min_ub_samples: int = 8192, max_ub_samples: int = 262_144,
+            ub_batch: int = 8192, seed: int = 7000,
+            verbose: bool = False, **cert_kw) -> Dict:
+        """Run SD until the certified optimality gap crosses
+        ``target_gap``.
+
+        Every ``certify_every`` iterations (default: four looks across
+        ``max_iters``) the loop takes the compromise decision and its
+        stratified Monte-Carlo bound (``min_ub_samples``, resampled up to
+        ``max_ub_samples`` while the half-width exceeds a quarter of the
+        target gap), certifies a lower bound by the free model route
+        first, escalates to ``method`` ("auto": "polish" for n1 <= 32,
+        else "ef"; ``cert_kw`` goes there) only when the model route
+        misses, and stops once ((ub + hw) - (lb_mean - lb_hw)) / |ub + hw|
+        <= target_gap. Round k uses the seeds ``seed + 1000 k`` (+1 for
+        the resample, +2 for the escalated route).
+
+        The stopping rule looks at the data up to L = ceil(max_iters /
+        certify_every) times, so the confidence is split over the planned
+        looks: each look's upper-bound interval is taken at 1 - (1 -
+        confidence) / L (``confidence_per_look``), and its lower bound
+        too, unless the look may escalate: then it takes the better of
+        two lower bounds, so each of the two routes gets half the lower
+        bound's share, 1 - (1 - confidence) / (2 L)
+        (``lb_confidence_per_look``). By the union bound over the looks
+        and every interval a look reads, the certified gap at the look
+        that stops holds at ``confidence`` overall; the resampled upper
+        bound's sequential sampling counts at its nominal level.
+
+        Returns ``stopped``, ``iters``, ``target_gap``, ``confidence``,
+        ``looks``, ``confidence_per_look``, ``lb_confidence_per_look``,
+        ``time_to_certified_gap_s``
+        (None when the target was not reached), the stopping round's
+        ``route``, ``lb_cert`` / ``lb_mean`` / ``lb_half_width``,
+        ``compromise_mc_ub`` (+ ``_half_width``), ``mc_ub_samples``,
+        ``cert_gap``, ``x_compromise`` and ``rounds`` (one record per
+        look). Raises ValueError for ``target_gap <= 0``.
+        """
+        if not target_gap > 0.0:
+            raise ValueError(f"target_gap must be > 0, got {target_gap}")
+        if not certify_every:
+            certify_every = max(1, max_iters // 4)
+        if method == "auto":
+            # the level bundle closes on low-dimensional first stages; EF
+            # dual certificates win in high dimension where it stalls
+            method = "polish" if self.inst.n1 <= 32 else "ef"
+        looks = max(1, math.ceil(max_iters / certify_every))
+        conf = 1.0 - (1.0 - confidence) / looks
+        # the better of two lower bounds fails when either does
+        conf_lb = conf if method == "model" else \
+            1.0 - (1.0 - confidence) / (2 * looks)
+        t_start = time.time()
+        rounds: List[Dict] = []
+        done = 0
+        while True:
+            n = min(certify_every, max_iters - done)
+            if n > 0:
+                self.run(n)
+                done += n
+            x_comp, _ = compromise_decision(
+                self.inst, self.states, self.especs, rho=compromise_rho,
+                qp_config=self.config.qp, obj_scale=self.obj_scale)
+            rseed = seed + 1000 * len(rounds)
+            ub, hw, n_ub = self.evaluate_ci(
+                x=x_comp, min_samples=min_ub_samples,
+                max_samples=min_ub_samples, seed=rseed, batch=ub_batch,
+                sampling="stratified", confidence=conf)
+            # a quarter of the target gap keeps the sampling error a minor
+            # term of the bracket
+            tgt_hw = 0.25 * target_gap * max(abs(ub), 1e-9)
+            if hw > tgt_hw and max_ub_samples > min_ub_samples:
+                ub, hw, n_ub = self.evaluate_ci(
+                    x=x_comp, target_half_width=tgt_hw,
+                    min_samples=min_ub_samples,
+                    max_samples=max_ub_samples, seed=rseed + 1,
+                    batch=ub_batch, sampling="stratified", confidence=conf)
+
+            def gap_of(cert):
+                return ((ub + hw) - (cert["lb_mean"] - cert["lb_half_width"])
+                        ) / max(abs(ub + hw), 1e-9)
+
+            cert = certified_lower_bound(
+                self.arrays, self.espec, self.states,
+                obj_scale=self.obj_scale, confidence=conf_lb)
+            route = "model"
+            gap = gap_of(cert)
+            if gap > target_gap and method != "model":
+                cert_esc = self.certified_lower_bound(
+                    confidence=conf_lb, method=method, seed=rseed + 2,
+                    **cert_kw)
+                gap_esc = gap_of(cert_esc)
+                if gap_esc < gap:
+                    cert, gap, route = cert_esc, gap_esc, method
+            rec = {"it": done, "route": route,
+                   "wall_s": round(time.time() - t_start, 2),
+                   "lb_cert": float(cert["lb_cert"]),
+                   "lb_mean": float(cert["lb_mean"]),
+                   "lb_half_width": float(cert["lb_half_width"]),
+                   "compromise_mc_ub": float(ub),
+                   "compromise_mc_ub_half_width": float(hw),
+                   "mc_ub_samples": int(n_ub),
+                   "cert_gap": float(gap)}
+            rounds.append(rec)
+            if verbose:
+                print(f"[certify] iter {done}: gap={gap:.5f} "
+                      f"({route}; lb_cert={cert['lb_cert']:.6g} "
+                      f"ub={ub:.6g}+-{hw:.3g}) target={target_gap:g}",
+                      file=sys.stderr, flush=True)
+            stopped = gap <= target_gap
+            if stopped or done >= max_iters:
+                out = dict(rec)
+                out.update({
+                    "stopped": stopped,
+                    "iters": done,
+                    "target_gap": target_gap,
+                    "confidence": confidence,
+                    "looks": looks,
+                    "confidence_per_look": conf,
+                    "lb_confidence_per_look": conf_lb,
+                    "time_to_certified_gap_s":
+                        rec["wall_s"] if stopped else None,
+                    "x_compromise": np.asarray(x_comp),
+                    "rounds": rounds,
+                })
+                return out
 
     @property
     def especs(self) -> List[EpigraphSpec]:

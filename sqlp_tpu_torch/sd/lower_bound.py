@@ -1,17 +1,23 @@
-"""Certified lower bounds for SD solutions: the extensive-form (EF) and the
-cut-model routes.
+"""Certified lower bounds for SD solutions: the model, the level-bundle
+polish and the extensive-form (EF) routes.
 
 Port of record: ``sqlp_tpu/sd/lower_bound.py`` (``cut_model_min``
-:77-208, ``_certification_streams`` :211-301, ``_feasproj_consts`` /
-``_feasproj_run`` :722-770, ``_refine_recourse_duals`` :773-852,
-``_lagrangian_corrections`` :934-976, ``saa_ef_bound`` :979-1340,
-``t_lower_bound`` :1342-1393, ``certified_lower_bound`` :1395-1441).
+:77-208, ``_certification_streams`` :211-301, ``saa_polish`` :304-720,
+``_feasproj_consts`` / ``_feasproj_run`` :722-770,
+``_refine_recourse_duals`` :773-852, ``_lagrangian_corrections`` :934-976,
+``saa_ef_bound`` :979-1340, ``t_lower_bound`` :1342-1393,
+``certified_lower_bound`` :1395-1441).
 
 Per replication, a deterministic lower bound on its sample-average (SAA)
 optimum v_N:
 
 * the model route (``certified_lower_bound``): the exact minimum of the
   SD run's own cut model over the first-stage polytope (host HiGHS, f64);
+* the polish route (``saa_polish``): a level bundle that tightens the
+  model with full-stream average cuts before taking its exact minimum.
+  Each round evaluates every replication's points in one batched recourse
+  solve, assembles the cuts in f64 on the device and projects onto the
+  level set with one R-batched ADMM QP;
 * the EF route (``saa_ef_bound``): solve the replication's sample-average
   extensive form over its certification stream (models/crash.py, all R
   replications in one batched solve, then an f64 continuation), walk the
@@ -19,18 +25,20 @@ optimum v_N:
   f64, on the device), deduct the exact weak-duality correction of what
   infeasibility remains, and take the exact minimum of the one aggregate
   cut per epigraph on the host. By LP duality that minimum is v_N less
-  the solve's duality gap.
+  the solve's duality gap. ``extra_cuts`` merges the polish's cuts in
+  (the ``ef_polish`` route of the driver).
 
-``t_lower_bound`` turns R i.i.d. per-replication bounds into a Student-t
-confidence bound on the true optimum. The validity caveats and the
-measurements behind each default are those of the port of record's
-docstrings. Not ported: the level-bundle polish (``saa_polish``, the
-``ef_polish`` route, ROADMAP A12b), antithetic certification pairing
-(``fresh_pairing``, A12b), ``refine_mode="resolve"`` (it crashes the bound
-to the epigraph floor on degenerate recourse), and the reference's
-``vmap_group`` split and ``ef_chunk_iters`` (both work around TPU compile
-and program-length limits). The f64 refinement always runs: the
-reference skips it only on the TPU backend.
+Certification streams are fresh (Latin hypercube by default), the SD
+run's own, or the SD run's extended; under ``fresh_pairing="antithetic"``
+replication 2k+1 certifies on the complement of replication 2k's stream.
+``t_lower_bound`` turns R i.i.d. per-replication bounds (or R/2 pair
+means) into a Student-t confidence bound on the true optimum. The
+validity caveats and the measurements behind each default are those of
+the port of record's docstrings. Not ported: ``refine_mode="resolve"``
+(it crashes the bound to the epigraph floor on degenerate recourse), and
+the reference's ``vmap_group`` split and ``ef_chunk_iters`` (both work
+around TPU compile and program-length limits). The f64 refinement always
+runs: the reference skips it only on the TPU backend.
 """
 
 from __future__ import annotations
@@ -46,9 +54,12 @@ import scipy.optimize
 import torch
 
 from sqlp_tpu_torch.models.crash import solve_extensive_form
-from sqlp_tpu_torch.models.routines import _np, solve_lp_host
+from sqlp_tpu_torch.models.routines import (_np, project_first_stage,
+                                            solve_lp_host)
 from sqlp_tpu_torch.models.scenario import cost_panel, sample_deltas
 from sqlp_tpu_torch.models.stage import SENSE_G, SENSE_L
+from sqlp_tpu_torch.ops.pdhg import solve_batch
+from sqlp_tpu_torch.ops.prox_qp import solve_qp
 from sqlp_tpu_torch.sd.algorithm import _scenario_rhs
 
 
@@ -208,13 +219,19 @@ def stream_generator(device, seed: int, index: int) -> torch.Generator:
 
 def _certification_streams(states, scenario_model, R, E, N_sd,
                            extra_scenarios, fresh_scenarios, seed,
-                           fresh_sampling):
+                           fresh_sampling, fresh_pairing=None):
     """The per-replication certification streams ([R, E, N, Rv] deltas and
     [R, E, N] weights, host f64) and whether the SD run's own cuts may
     enter the bound model: only when the certification stream IS the
     run's own full stream (no fresh replacement, no extension, no
     reservoir overflow). Streams are drawn per replication index r (the
-    port has no group split, so r is the global index)."""
+    port has no group split, so r is the global index).
+
+    ``fresh_pairing="antithetic"`` (fresh streams only, R even): the
+    replications pair up, and replication 2k+1 certifies on the
+    complement (u -> 1 - u) of the stream of replication 2k, stream index
+    k * E + e. Every stream keeps its distribution, so each bound stays
+    valid; the Student-t interval is then taken over the pair means."""
     # the admissibility decision reads states[0] only: every replication
     # must agree on it
     drops = [int(_np(s.scen_dropped)) for s in states]
@@ -228,13 +245,24 @@ def _certification_streams(states, scenario_model, R, E, N_sd,
         raise ValueError(
             "replications disagree on per-epigraph scenario counts; "
             "certify these states separately or use fresh_scenarios")
+    if fresh_pairing not in (None, "antithetic"):
+        raise ValueError(f"unknown fresh_pairing {fresh_pairing!r}")
+    if fresh_pairing and fresh_scenarios <= 0:
+        raise ValueError("antithetic pairing pairs fresh certification "
+                         "streams: it needs fresh_scenarios > 0")
+    if fresh_pairing and R % 2:
+        raise ValueError(f"antithetic replication pairing needs an even "
+                         f"R, got {R}")
     dev = scenario_model.base.device
 
-    def draws(n, method):
+    def draws(n, method, paired=False):
         return np.stack([
             np.stack([
-                _np64(sample_deltas(stream_generator(dev, seed, r * E + e),
-                                    scenario_model, n, method=method))
+                _np64(sample_deltas(
+                    stream_generator(dev, seed, (r // 2 if paired else r)
+                                     * E + e),
+                    scenario_model, n, method=method,
+                    complement=paired and bool(r % 2)))
                 for e in range(E)])
             for r in range(R)])
 
@@ -242,7 +270,8 @@ def _certification_streams(states, scenario_model, R, E, N_sd,
         if extra_scenarios != 0:
             raise ValueError("fresh_scenarios replaces the stream; "
                              "extra_scenarios extends it")
-        deltas_h = draws(fresh_scenarios, fresh_sampling)
+        deltas_h = draws(fresh_scenarios, fresh_sampling,
+                         paired=fresh_pairing == "antithetic")
         return deltas_h, np.ones(deltas_h.shape[:3]), False
     deltas_h = np.stack([_np64(s.scen_deltas)[:, :N_sd] for s in states])
     weights_h = np.stack([_np64(s.scen_weights)[:, :N_sd] for s in states])
@@ -256,6 +285,358 @@ def _certification_streams(states, scenario_model, R, E, N_sd,
         weights_h = np.concatenate(
             [weights_h, np.ones(extras.shape[:3])], axis=2)
     return deltas_h, weights_h, include_state_cuts
+
+
+def saa_polish(arrays, scenario_model, espec, prep_sub, states: Sequence,
+               config, obj_scale: float = 1.0, max_rounds: int = 24,
+               gap_tol: float = 1e-4, extra_scenarios: int = 0,
+               seed: int = 9000, level_lambda: float = 0.3,
+               qp_rows_cap: int = 64, fresh_scenarios: int = 0,
+               fresh_sampling: str = "stratified",
+               fresh_pairing=None) -> Dict:
+    """Level-bundle polish: drive each replication's certified lower bound
+    toward its SAA optimum v_N (the port of record's docstring has the
+    measurements behind the design).
+
+      round 1   evaluate at each replication's incumbent;
+      round k   lb_r = the exact bound-model minimum (host HiGHS f64: the
+                valid, monotone bound); evaluate two points per
+                replication: the projection of the previous point onto the
+                level set {model <= lb + level_lambda (ub - lb)} (one
+                R-batched ADMM QP, :func:`solve_qp` over a leading R axis,
+                whose model also holds the SD run's own cuts) and the
+                bound model's argmin (the Kelley point).
+
+    Every round solves all R * P * E * N recourse LPs in one
+    :func:`solve_batch` call, warm-started at the previous round's
+    solution (tiled over the point axis when it grows from 1 to 2), and
+    assembles the full-weight average cuts on the device in f64: elements
+    the solve could not certify take the replication's best pool vertex
+    (``seed_dual`` on random-cost instances), 400 projection steps walk
+    the duals to dual feasibility, and the exact weak-duality correction
+    of what remains enters each alpha. Only the [R, P, E] alpha and value
+    panels and the [R, P, E, n1] beta panel come to the host.
+
+    ``extra_scenarios`` / ``fresh_scenarios`` / ``fresh_pairing``: the
+    certification streams of :func:`_certification_streams`; on any
+    stream but the run's own the SD cuts leave the bound model (they
+    still shape the projection QP). ``qp_rows_cap`` (at least 2E) is the
+    ring of polish cuts the projection QP holds.
+
+    Returns (bounds unscaled): lb_per_rep (the final exact model minima),
+    saa_ub_per_rep (the best SAA value estimate found, the bundle's
+    stopping signal, not a bound), gap_per_rep, rounds, cuts_per_rep (per
+    replication the (e, alpha, beta) cuts, scaled units, valid for the
+    same streams: ``saa_ef_bound(extra_cuts=...)`` takes them),
+    dual_infeas_per_rep (the worst relative dual infeasibility left after
+    the projection, already corrected for in the alphas), n_scenarios and,
+    beyond the port of record, round_seconds (the wall time of each
+    evaluated round; every round ends in host reads).
+    """
+    R = len(states)
+    E, K = states[0].cut_alpha.shape
+    n_scen = _np(states[0].n_scen)
+    for s in states:
+        if not np.array_equal(_np(s.n_scen), n_scen):
+            raise ValueError("replications must share scenario counts "
+                             "(same run length)")
+    N_sd = int(n_scen.max())
+    if int(n_scen.min()) != N_sd:
+        raise ValueError("per-epigraph scenario counts differ")
+    if qp_rows_cap < 2 * E:
+        raise ValueError(f"qp_rows_cap={qp_rows_cap} cannot hold one "
+                         f"round of cuts (2E = {2 * E})")
+
+    f8 = torch.float64
+    dt = arrays.c.dtype
+    dev = arrays.c.device
+    w_e = _np64(espec.obj_weight)
+    lb_e = _np64(espec.lower_bound)
+    c64 = _np64(arrays.c)
+    A1 = _np64(arrays.A1)
+    b1 = _np64(arrays.b1)
+    senses1 = _np(arrays.senses1)
+    lb1 = _np64(arrays.lb1)
+    ub1 = _np64(arrays.ub1)
+    sm = scenario_model
+    has_cost = sm.has_cost
+    n1 = c64.shape[0]
+    m1 = b1.shape[0]
+    m2 = arrays.r.shape[0]
+    n2 = arrays.q.shape[0]
+
+    deltas_h, weights_h, include_state_cuts = _certification_streams(
+        states, sm, R, E, N_sd, extra_scenarios, fresh_scenarios, seed,
+        fresh_sampling, fresh_pairing)
+    N = deltas_h.shape[2]
+    p_h = weights_h / np.maximum(
+        weights_h.sum(axis=2, keepdims=True), 1e-30)   # [R, E, N]
+    deltas_d = torch.as_tensor(deltas_h, dtype=dt, device=dev)
+    p_d = torch.as_tensor(p_h, dtype=f8, device=dev)
+
+    # per-replication live pools for the epsilon-feasible dual fallback
+    pools_d = torch.stack([s.duals for s in states])   # [R, D, m2]
+    npool_d = torch.as_tensor([max(int(_np(s.n_duals)), 1) for s in states],
+                              device=dev)
+    seed_d = sm.seed_dual.to(f8) if has_cost else None
+
+    # ---- on-device f64 cut assembly, all replications at once -----------
+    rv_row_d = sm.rv_row.long()
+    rv_col_d = sm.rv_col.long()
+    rhs_mask = sm.rv_is_rhs
+    tr_mask = ~(sm.rv_is_rhs | sm.rv_is_cost) if has_cost \
+        else ~sm.rv_is_rhs
+    r_d64 = arrays.r.to(f8)
+    T_d64 = arrays.T.to(f8)
+    fp = _feasproj_consts(arrays)
+    lb2, ub2 = arrays.lb2.to(f8), arrays.ub2.to(f8)
+    lb_ok, ub_ok = torch.isfinite(lb2), torch.isfinite(ub2)
+    lbf = torch.where(lb_ok, lb2, 0.0)
+    ubf = torch.where(ub_ok, ub2, 0.0)
+    q64 = arrays.q.to(f8)
+    qn_pol = float(1.0 + np.abs(_np64(arrays.q)).max())
+
+    def assemble(Pi, valid, obj, H, Q_el, cap, P):
+        """Pi / H [R, P*E*N, m2]; valid / obj [R, P*E*N]; Q_el [R, P*E*N,
+        n2] per-element costs (random-cost instances) or None; cap [n2]
+        correction cap. Returns (alpha [R, P, E], beta [R, P, E, n1],
+        vals [R, P, E], vmax [R]) in f64."""
+        PEN = Pi.shape[1]
+        if has_cost:
+            sub = seed_d.expand(R, PEN, m2)
+        else:
+            live = (torch.arange(pools_d.shape[1], device=dev)[None, :, None]
+                    < npool_d[:, None, None])
+            sc = torch.where(live, pools_d @ H.transpose(1, 2), -math.inf)
+            win = torch.argmax(sc, dim=1)                  # [R, PEN]
+            sub = torch.gather(pools_d, 1,
+                               win[..., None].expand(R, PEN, m2))
+        Pi_use = torch.where(valid[..., None], Pi, sub).to(f8)
+        q_el = Q_el.to(f8).reshape(R * PEN, n2) if has_cost \
+            else q64[None, :]
+        Pi_use = _feasproj_run(fp, Pi_use.reshape(R * PEN, m2), q_el, 400)
+        red = (q_el - Pi_use @ fp["W64"]).reshape(R, PEN, n2)
+        viol = (torch.where(fp["ub_inf"], torch.clamp(-red, min=0.0), 0.0)
+                + torch.where(fp["lb_inf"], torch.clamp(red, min=0.0), 0.0))
+        vmax = torch.amax(viol, dim=(1, 2)) / qn_pol
+        term = torch.where(
+            red >= 0.0,
+            torch.where(lb_ok, red * lbf, -red * cap),
+            torch.where(ub_ok, red * ubf, red * cap))
+        corr_el = term.sum(-1).reshape(R, P, E, N)
+        PiR = Pi_use.reshape(R, P, E, N, m2)
+        d64 = deltas_d.to(f8)                              # [R, E, N, Rv]
+        pi_rows = PiR[..., rv_row_d]                       # [R, P, E, N, Rv]
+        rhs_del = torch.where(rhs_mask, d64, 0.0)
+        alpha = (torch.einsum("ren,rpenm,m->rpe", p_d, PiR, r_d64)
+                 + torch.einsum("ren,renv,rpenv->rpe", p_d, rhs_del,
+                                pi_rows)
+                 + torch.einsum("ren,rpen->rpe", p_d, corr_el))
+        pibar = torch.einsum("ren,rpenm->rpem", p_d, PiR)
+        beta = -torch.einsum("rpem,mk->rpek", pibar, T_d64)
+        tr = torch.einsum("ren,renv,rpenv->rpev", p_d,
+                          torch.where(tr_mask, d64, 0.0), pi_rows)
+        beta = beta.index_add(-1, rv_col_d,
+                              -torch.where(tr_mask, tr, 0.0))
+        vals = torch.einsum("ren,rpen->rpe", p_d,
+                            obj.reshape(R, P, E, N).to(f8))
+        return alpha, beta, vals, vmax
+
+    # ---- R-batched level-projection QP ----------------------------------
+    # Static row layout: stage-1 | x bounds | eta >= lb_e | the SD run's
+    # own cut pool + incumbent cuts (frozen during the polish) | a
+    # qp_rows_cap ring of polish cuts | level.
+    nz = n1 + E
+    sd_rows = E * K + E
+    n_rows = m1 + n1 + E + sd_rows + qp_rows_cap + 1
+    p_diag = torch.as_tensor(np.concatenate([np.ones(n1), np.zeros(E)]),
+                             dtype=dt, device=dev).expand(R, nz)
+    is_eq = torch.as_tensor(np.concatenate(
+        [senses1 == 0, np.zeros(n_rows - m1, bool)]), device=dev)
+    A_base = np.zeros((n_rows, nz))
+    l_base = np.full(n_rows, -np.inf)
+    u_base = np.full(n_rows, np.inf)
+    A_base[:m1, :n1] = A1
+    l_base[:m1] = np.where(senses1 == -1, -np.inf, b1)   # '<=' rows
+    u_base[:m1] = np.where(senses1 == 1, np.inf, b1)     # '>=' rows
+    A_base[m1:m1 + n1, :n1] = np.eye(n1)
+    l_base[m1:m1 + n1] = lb1
+    u_base[m1:m1 + n1] = ub1
+    A_base[m1 + n1:m1 + n1 + E, n1:] = np.eye(E)
+    l_base[m1 + n1:m1 + n1 + E] = lb_e
+    A_base[-1] = np.concatenate([c64, w_e])              # level row
+    A_b = np.broadcast_to(A_base, (R,) + A_base.shape).copy()
+    l_b = np.broadcast_to(l_base, (R, n_rows)).copy()
+    u_b = np.broadcast_to(u_base, (R, n_rows)).copy()
+    off_sd = m1 + n1 + E
+    for r in range(R):
+        st = states[r]
+        d = _np64(st.cut_mark) / np.maximum(
+            _np64(st.total_weight)[:, None], 1e-30)
+        livec = _np(st.cut_live)
+        a_c = _np64(st.cut_alpha)
+        b_c = _np64(st.cut_beta)
+        for e in range(E):
+            for k in range(K):
+                if not livec[e, k]:
+                    continue
+                row = off_sd + e * K + k
+                A_b[r, row, :n1] = -d[e, k] * b_c[e, k]
+                A_b[r, row, n1 + e] = 1.0
+                l_b[r, row] = d[e, k] * a_c[e, k] + (1 - d[e, k]) * lb_e[e]
+        inc_v = _np(st.inc_valid)
+        a_i = _np64(st.inc_alpha)
+        b_i = _np64(st.inc_beta)
+        for e in range(E):
+            if not inc_v[e]:
+                continue
+            row = off_sd + E * K + e
+            A_b[r, row, :n1] = -b_i[e]
+            A_b[r, row, n1 + e] = 1.0
+            l_b[r, row] = a_i[e]
+
+    qp_cfg = dataclasses.replace(config.qp, warm_retry=False)
+    on_dev = lambda a: torch.as_tensor(a, dtype=dt, device=dev)
+    z0 = torch.zeros((R, nz), dtype=dt, device=dev)
+    mu0 = torch.zeros((R, n_rows), dtype=dt, device=dev)
+
+    cuts: list = [[] for _ in range(R)]
+    ring = 0                                           # next QP cut slot
+    off_ring = off_sd + sd_rows
+    centers = np.stack([_np64(s.x_incumbent) for s in states])
+    lb = np.full(R, -np.inf)
+    ub = np.full(R, np.inf)
+    gap = np.full(R, np.inf)
+    dual_infeas = np.zeros(R)
+    x_kelley = centers.copy()
+    prev_YL = None
+    rounds = 0
+    lb_rich = np.full(R, -np.inf)
+    round_s = []
+
+    def model_min(r, with_state_cuts):
+        return cut_model_min(
+            arrays, espec, states[r], check_validity=False,
+            extra_cuts=cuts[r], include_state_cuts=with_state_cuts,
+            return_x=True)
+
+    for rounds in range(1, max_rounds + 1):
+        t_round = time.perf_counter()
+        if include_state_cuts or cuts[0]:
+            # the Kelley companion chases the BOUND model's argmin: cuts
+            # land where the reported bound is attained
+            for r in range(R):
+                lb[r], x_kelley[r], _ = model_min(r, include_state_cuts)
+        if include_state_cuts:
+            lb_rich = lb                   # the bound model is the QP's
+        else:
+            # the rich model (SD cuts + polish cuts) drives the level: it
+            # matches the projection QP's rows, so the level set is never
+            # empty
+            for r in range(R):
+                lb_rich[r], _, _ = model_min(r, True)
+        if rounds > 1:
+            gap = (ub - lb) / (1.0 + np.abs(ub))
+            if gap.max() <= gap_tol:
+                rounds -= 1
+                break
+        if rounds == 1:
+            X = centers[:, None, :]                    # [R, 1, n1]
+        else:
+            level = lb_rich + level_lambda * (ub - lb_rich)
+            g_b = np.concatenate([-centers, np.zeros((R, E))], axis=1)
+            u_b[:, -1] = level
+            z, mu, _ = solve_qp(p_diag, on_dev(g_b), on_dev(A_b),
+                                on_dev(l_b), on_dev(u_b), is_eq, qp_cfg,
+                                z0=z0, mu0=mu0)
+            z0, mu0 = z, mu
+            Xq = _np64(z)[:, :n1]
+            X = np.zeros((R, 2, n1))
+            for r in range(R):
+                xr = Xq[r]
+                if not np.all(np.isfinite(xr)):
+                    # degenerate projection: a stabilized Kelley step
+                    xr = 0.7 * centers[r] + 0.3 * x_kelley[r]
+                xr = np.clip(xr, lb1, ub1)
+                X[r, 0], _ = project_first_stage(arrays, xr)
+                X[r, 1] = x_kelley[r]                  # the Kelley point
+        P = X.shape[1]
+        Xd = on_dev(X)
+        H = torch.cat([
+            _scenario_rhs(arrays, sm, deltas_d[r].reshape(E * N, -1),
+                          Xd[r, pp])
+            for r in range(R) for pp in range(P)])     # [R*P*E*N, m2]
+        if has_cost:
+            Q = cost_panel(sm, deltas_d[:, None].expand(
+                R, P, E, N, deltas_d.shape[-1]).reshape(R * P * E * N, -1),
+                arrays.q)
+        else:
+            Q = None
+        if prev_YL is not None and prev_YL[0].shape[0] == R * P * E * N:
+            Y0, L0 = prev_YL
+        elif prev_YL is not None:
+            # P grew (round 1 -> 2): tile the previous solution over the
+            # new per-replication point axis
+            Pp = prev_YL[0].shape[0] // (R * E * N)
+
+            def tile(a):
+                return a.reshape(R, Pp, E * N, -1)[:, :1].expand(
+                    R, P, E * N, a.shape[-1]).reshape(R * P * E * N, -1)
+
+            Y0, L0 = tile(prev_YL[0]), tile(prev_YL[1])
+        else:
+            Y0 = L0 = None
+        obj, Y, Pi, stats = solve_batch(prep_sub, H, config.pdhg, Y0=Y0,
+                                        L0=L0, Q=Q)
+        prev_YL = (Y, Pi)
+        cap = 10.0 * (1.0 + torch.amax(torch.abs(Y.to(f8)), dim=0))
+        alpha_all, beta_all, vals_all, vmax_all = assemble(
+            Pi.reshape(R, P * E * N, m2),
+            stats["pdhg_valid"].reshape(R, P * E * N),
+            obj.reshape(R, P * E * N), H.reshape(R, P * E * N, m2),
+            None if Q is None else Q.reshape(R, P * E * N, n2), cap, P)
+        dual_infeas = np.maximum(dual_infeas, _np64(vmax_all))
+        alpha_all = _np64(alpha_all)                   # [R, P, E]
+        beta_all = _np64(beta_all)                     # [R, P, E, n1]
+        vals_all = _np64(vals_all)                     # [R, P, E]
+
+        for r in range(R):
+            for pp in range(P):
+                for e in range(E):
+                    alpha, beta = alpha_all[r, pp, e], beta_all[r, pp, e]
+                    cuts[r].append((e, alpha, beta))
+                    row = off_ring + ((ring + pp * E + e) % qp_rows_cap)
+                    A_b[r, row, :n1] = -beta
+                    A_b[r, row, n1:] = 0.0
+                    A_b[r, row, n1 + e] = 1.0
+                    l_b[r, row] = alpha
+                    u_b[r, row] = np.inf
+                # the exact-sample SAA value at each point: the bundle's
+                # upper bound (PDHG's objective error only moves the
+                # stopping signal)
+                ub[r] = min(ub[r],
+                            float(c64 @ X[r, pp] + w_e @ vals_all[r, pp]))
+        ring += P * E
+        centers = X[:, 0]
+        round_s.append(time.perf_counter() - t_round)
+
+    for r in range(R):
+        lb[r], _, _ = cut_model_min(
+            arrays, espec, states[r],
+            check_validity=(r == 0 and include_state_cuts),
+            extra_cuts=cuts[r], include_state_cuts=include_state_cuts,
+            return_x=True)
+    gap = (ub - lb) / (1.0 + np.abs(ub))
+    return {
+        "lb_per_rep": lb * obj_scale,
+        "saa_ub_per_rep": ub * obj_scale,
+        "gap_per_rep": gap,
+        "rounds": rounds,
+        "cuts_per_rep": cuts,
+        "dual_infeas_per_rep": dual_infeas,
+        "n_scenarios": N,
+        "round_seconds": round_s,
+    }
 
 
 def _feasproj_consts(arrays) -> Dict:
@@ -388,9 +769,11 @@ HOST_EXACT_CAP = 1024
 def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
                  config, obj_scale: float = 1.0,
                  extra_scenarios: int = 0, seed: int = 9000,
-                 ef_config=None, refine_iters: int = 4000,
+                 ef_config=None, extra_cuts: Optional[Sequence] = None,
+                 refine_iters: int = 4000,
                  fresh_scenarios: int = 0,
-                 fresh_sampling: str = "stratified") -> Dict:
+                 fresh_sampling: str = "stratified",
+                 fresh_pairing=None) -> Dict:
     """SAA lower bound from extensive-form dual certificates.
 
     For each replication, solve the sample-average extensive form over
@@ -412,7 +795,12 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
     ``fresh_scenarios`` replaces each replication's stream by a fresh one
     (``fresh_sampling``, Latin hypercube by default); ``extra_scenarios``
     extends the SD stream with fresh i.i.d. draws (the SD cuts then leave
-    the bound model). ``refine_iters`` caps the f64 continuation.
+    the bound model); ``fresh_pairing`` as in
+    :func:`_certification_streams`. ``extra_cuts`` (per replication a
+    list of (e, alpha, beta), scaled units, valid for the same streams:
+    :func:`saa_polish`'s ``cuts_per_rep`` under the same seed) joins the
+    aggregate cuts in each final cut-model minimum. ``refine_iters`` caps
+    the f64 continuation.
 
     Returns lb_per_rep, x_ef_per_rep, ef_obj_per_rep, ef_err_per_rep,
     dual_infeas_per_rep, cut_correction_per_rep, host_exact_count,
@@ -432,7 +820,7 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
 
     deltas_h, weights_h, include_state_cuts = _certification_streams(
         states, scenario_model, R, E, N_sd, extra_scenarios,
-        fresh_scenarios, seed, fresh_sampling)
+        fresh_scenarios, seed, fresh_sampling, fresh_pairing)
     N = deltas_h.shape[2]
     p_h = weights_h / np.maximum(
         weights_h.sum(axis=2, keepdims=True), 1e-30)     # [R, E, N]
@@ -555,7 +943,7 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
     corr = corr.reshape(R, E, N)
     lb = np.zeros(R)
     for r in range(R):
-        cuts_r = []
+        cuts_r = list(extra_cuts[r]) if extra_cuts is not None else []
         for e in range(E):
             p = p_h[r, e]
             Pi_re = pt_h[r, e]

@@ -129,3 +129,42 @@ def test_batched_solve_returns_under_four_threads():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "returned" in proc.stdout
+
+
+_INV = textwrap.dedent("""
+    import torch
+    from sqlp_tpu_torch.ops.prox_qp import _inv
+
+    torch.set_num_threads(4)
+    g = torch.Generator().manual_seed(0)
+    # the active-set polish's Schur system of the certification
+    # polish's projection QP on ssn (mA = 253 rows), one per QP of an
+    # R = 8 batch
+    A = torch.randn((8, 253, 300), generator=g, dtype=torch.float64)
+    M = A @ A.transpose(1, 2) + torch.eye(253, dtype=torch.float64)
+    Mi4 = _inv(M)
+    assert torch.get_num_threads() == 4
+    torch.set_num_threads(1)
+    Mi1 = _inv(M)
+    torch.set_num_threads(4)
+    assert torch.equal(Mi4, Mi1)
+    assert bool(torch.isfinite(Mi4).all())
+    eye = torch.eye(253, dtype=torch.float64).expand(8, 253, 253)
+    assert float((M @ Mi4 - eye).abs().max()) < 1e-8
+    print("returned")
+""")
+
+
+def test_inverse_returns_under_four_threads():
+    """The master QP's batched f64 inverse (``ops/prox_qp.py:_inv``) on
+    eight ssn-shaped [253, 253] systems returns under 4 intra-op threads
+    (MKL's batched LU hangs there unless the call runs on one), bitwise
+    equal to the one-thread result, and leaves the caller's thread count
+    as it was. Run in its own process with its own 120 s limit: a hang
+    fails the test instead of the run."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _INV], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "returned" in proc.stdout

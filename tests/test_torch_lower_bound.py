@@ -216,7 +216,8 @@ def test_select_decision_picks_lowest_mean():
 def test_replications_certified_bound_routes(lands):
     """SDReplications.certified_lower_bound: the model route on the
     carried states equals the JAX package's; the polish routes and
-    antithetic pairing are refused with the ROADMAP item."""
+    antithetic pairing run and return one valid bound per replication
+    (tests/test_torch_polish.py holds them against the JAX package)."""
     ps, js, states = lands
     s = SDReplications(ps.inst, SDConfig(**_CAP), n_replications=R,
                        x0=_X0["lands"], seed=0)
@@ -228,10 +229,21 @@ def test_replications_certified_bound_routes(lands):
                                        obj_scale=js[0].obj_scale)
     np.testing.assert_allclose(got["lb_per_rep"], ref["lb_per_rep"],
                                rtol=1e-9)
-    for kw in ({"method": "polish"}, {"method": "ef_polish"},
-               {"antithetic_reps": True, "fresh_scenarios": 8}):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            s.certified_lower_bound(**kw)
+    for kw in ({"method": "polish", "polish_rounds": 2},
+               {"method": "ef_polish", "polish_rounds": 2,
+                "fresh_scenarios": 8, "refine_iters": 64,
+                "ef_config": PDHGConfig(tol=1e-5, max_iters=4_000)},
+               {"method": "polish", "polish_rounds": 2,
+                "antithetic_reps": True, "fresh_scenarios": 8}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = s.certified_lower_bound(**kw)
+        assert out["lb_per_rep"].shape == (R,), kw
+        assert np.all(np.isfinite(out["lb_per_rep"])), kw
+        assert np.all(out["lb_per_rep"] < LANDS_OPT + 60.0), kw
+        if kw["method"] == "ef_polish":
+            assert np.all(out["lb_per_rep"]
+                          >= out["polish_lb_per_rep"] - 1e-6)
 
 
 def test_cli_certify_lands(capsys):
@@ -263,8 +275,12 @@ def test_cli_evaluate(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--replications", "2", "--certify", "--certify-method", "polish"],
-    ["--replications", "2", "--target-gap", "0.01"]])
+    ["--mesh", "2"],
+    ["--proposal-sto", "x"]])
 def test_cli_refuses_polish_and_target_gap(flags, capsys):
+    """The flags the port still refuses, each with the ROADMAP item that
+    brings it. The polish route and --target-gap, which this test
+    refused before, run now (tests/test_torch_polish_gap.py)."""
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
-    assert "ROADMAP A12b" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "is not ported to sqlp_tpu_torch yet (ROADMAP A1" in err
