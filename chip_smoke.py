@@ -5,6 +5,7 @@
         --phases device,b1,b2,b3,main,replicated,small,cli,cli_rep
     python3 chip_smoke.py --phases device,certify,cli_cert
     python3 chip_smoke.py --phases device,certify,cert_polish,cli_gap
+    python3 chip_smoke.py --phases device,cli_run
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
@@ -51,7 +52,14 @@ operands. `cli_gap` runs the lands CLI's `--target-gap 0.01` (stopped at
 a certified gap within its 2 looks) and the ssn CLI's periodic loop
 (`--eval-every 100 --sharpen-every 100`: one sharpening, at iteration
 100) at once, each process reporting its own kernel launches; the CLI
-phases start their runs together. Any failed phase exits non-zero. The
+phases start their runs together. `cli_run` runs, beside them, run
+management and importance sampling through the CLI: a resumed ssn run
+(100 + 100 iterations) held bit for bit to an uninterrupted one (200,
+with a JSONL log), ssn drawn from a defensive mixture proposal under
+`--profile` (the trace must name B1's cluster and B3's kernels), lands
+from the uniform proposal under the reference's gates; meanwhile it holds
+the native SMPS parsers to the Python ones on ssn and storm. Any failed
+phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
@@ -263,11 +271,13 @@ _PDHG_CASES = (("lands", 8, False), ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 1024, False), ("ssn", 4096, False),
                ("storm", 2, False), ("storm", 1024, False),
                ("ssn", 2, True), ("ssn", 100, True))
-# the polish routes' float32 panels, Halpern only: the decision polish's
-# 8192 rows, the level bundle's 8 x 3000 (round 1) and 8 x 2 x 3000
-# (later rounds) and the 16384 of its 8 x 2 x 1024
-_POLISH_CASES = (("ssn", 8192, False), ("ssn", 16384, False),
-                 ("ssn", 24000, False), ("ssn", 48000, False))
+# the polish routes' float32 panels, Halpern only: the ladder's 768-row
+# rung, the decision polish's 8192 rows, the level bundle's 8 x 3000
+# (round 1) and 8 x 2 x 3000 (later rounds) and the 16384 of its 8 x 2 x
+# 1024
+_POLISH_CASES = (("ssn", 768, False), ("ssn", 8192, False),
+                 ("ssn", 16384, False), ("ssn", 24000, False),
+                 ("ssn", 48000, False))
 # a variant's entry in the kernels line: the wrapper's counter and the
 # shape its time is reported at (the path's own: the SD panel of the main
 # path is 2 rows, of the replicated path 16, the MC panel 4096; the
@@ -1395,7 +1405,7 @@ _COUNTED = ("import json, sys, chip_smoke\n"
             "sys.exit(rc)\n")
 
 
-def _cli(args, counted=False):
+def _cli(args, counted=False, env=None):
     """Start a CLI subprocess of the port from the repo root, its output
     into temporary files (pipes could fill while another run is waited
     for); returns (process, stdout file, stderr file). ``counted`` runs
@@ -1405,7 +1415,7 @@ def _cli(args, counted=False):
     head = ["-c", _COUNTED] if counted else ["-m", "sqlp_tpu_torch"]
     proc = subprocess.Popen(
         [sys.executable, *head, *args], stdout=out,
-        stderr=err, text=True,
+        stderr=err, text=True, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     _STARTED.append(proc)
     return proc, out, err
@@ -1418,14 +1428,27 @@ def _read(f) -> str:
     return text
 
 
-def _start(tag, runs, counted=False):
-    """Start a phase's CLI runs ({name: arguments}); returns the function
-    that waits for them, logs each result line and returns {name:
-    (stdout, stderr)}, or raises when a run failed."""
+def _start(tag, runs, counted=False, after=None):
+    """Start a phase's CLI runs ({name: arguments}); ``after`` ({name:
+    (next name, arguments)}) starts a run as soon as the named one has
+    ended. Returns the function that waits for them, logs each result line
+    and returns {name: (stdout, stderr)}, or raises when a run failed."""
+    import threading
     t0 = time.perf_counter()
-    procs = {k: _cli(v, counted) for k, v in runs.items()}
+    env = dict(os.environ)      # as it is now, also for the chained runs
+    procs = {k: _cli(v, counted, env) for k, v in runs.items()}
+    chained = []
+    for first, (name, args) in (after or {}).items():
+        def chain(first=first, name=name, args=args):
+            procs[first][0].wait()
+            procs[name] = _cli(args, counted, env)
+        chained.append(threading.Thread(target=chain))
+        chained[-1].start()
+        runs = dict(runs, **{name: args})
 
     def wait():
+        for t in chained:
+            t.join()
         outs = {k: (p.wait(), _read(o), _read(e))
                 for k, (p, o, e) in procs.items()}
         failed = []
@@ -1647,13 +1670,269 @@ def start_cli_gap(results):
     return finish
 
 
+# iterations of cli_run's ssn importance-sampling run, cut from 200: under
+# the profiler every eager operator is an event, 19 MB of trace an ssn
+# iteration (3.9 GB at 200)
+IS_ITERS = 100
+# the uniform proposal over lands' support (tests/test_sampling.py:278-285)
+LANDS_UNIFORM = ("STOCH         LandS\n"
+                 "INDEP         DISCRETE\n"
+                 "    RHS       S2C5      3.0       0.3333333333\n"
+                 "    RHS       S2C5      5.0       0.3333333333\n"
+                 "    RHS       S2C5      7.0       0.3333333334\n"
+                 "ENDATA\n")
+
+
+def _write_defensive_proposal(path):
+    """ssn's own positions and values, each position's pmf p replaced by
+    q = 0.9 p + 0.1 / n over its n outcomes: a defensive mixture, so each
+    position's ratio p / q is at most 1 / 0.9."""
+    from sqlp_tpu_torch.models.instance import find_instance_dir
+    from sqlp_tpu_torch.models.smps_sto import read_sto_py
+    sto = read_sto_py(os.path.join(find_instance_dir("ssn"), "ssn.sto"))
+    lines = [f"STOCH         {sto.problem_name}", "INDEP         DISCRETE"]
+    for pos, d in sto.indep.items():
+        p = [v / sum(d.probability) for v in d.probability]
+        for v, pk in zip(d.value, p):
+            lines.append(f"    {pos.col_name}    {pos.row_name}    {v!r}    "
+                         f"{0.9 * pk + 0.1 / len(p)!r}")
+    lines.append("ENDATA")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def _trace_kernels(log_dir, needles):
+    """(file, size in bytes, {needle: the first CUDA kernel name that
+    holds it, or None}) of the one Chrome trace that ``--profile`` wrote
+    into log_dir. The trace runs to gigabytes, so it is searched as bytes
+    (a kernel event's lines: ``"cat": "kernel",`` then ``"name":
+    "...",``) instead of parsed."""
+    import glob
+    import mmap
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile {log_dir} wrote {files}, not one "
+                             f"trace")
+    event = re.compile(rb'"cat": "kernel",\s*"name": "([^"]*)$')
+    found = {}
+    with open(files[0], "rb") as fh, \
+            mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        for needle in needles:
+            found[needle] = None
+            at = m.find(needle.encode())
+            while at >= 0 and found[needle] is None:
+                hit = event.search(m[max(0, at - 512):at])
+                if hit:
+                    end = m.find(b'"', at)
+                    found[needle] = (hit.group(1) + m[at:end]).decode()
+                at = m.find(needle.encode(), at + 1)
+    return files[0], os.path.getsize(files[0]), found
+
+
+def _parse_equal():
+    """The native and the Python parsers (``SQLP_TPU_TORCH_NATIVE=0``) on
+    ssn and storm: the parsed files and the instances compiled from them
+    on the card equal field by field; returns {name: (native parse s,
+    Python parse s)}."""
+    import torch
+    from sqlp_tpu_torch.models.instance import (ARRAY_FIELDS,
+                                                find_instance_dir,
+                                                load_instance)
+    from sqlp_tpu_torch.models.scenario import SCENARIO_FIELDS
+    from sqlp_tpu_torch.models.smps_cor import read_cor
+    from sqlp_tpu_torch.models.smps_sto import read_sto
+
+    times = {}
+    for name in ("ssn", "storm"):
+        base = os.path.join(find_instance_dir(name), name)
+        loaded = {}
+        try:
+            for mode in ("1", "0"):
+                os.environ["SQLP_TPU_TORCH_NATIVE"] = mode
+                t0 = time.perf_counter()
+                read_cor(base + ".cor")
+                read_sto(base + ".sto")
+                loaded[mode + "s"] = time.perf_counter() - t0
+                loaded[mode] = load_instance(name, dtype=torch.float32,
+                                             device="cuda")
+        finally:
+            os.environ.pop("SQLP_TPU_TORCH_NATIVE", None)
+        a, b = loaded["1"], loaded["0"]
+        bad = [f for f in ARRAY_FIELDS
+               if not torch.equal(getattr(a.arrays, f), getattr(b.arrays, f))]
+        bad += [f for f in SCENARIO_FIELDS
+                if not torch.equal(getattr(a.scenario_model, f),
+                                   getattr(b.scenario_model, f))]
+        if bad or a.cor.row_names != b.cor.row_names \
+                or list(a.sto.indep) != list(b.sto.indep):
+            raise AssertionError(f"{name}: the native and the Python parsers "
+                                 f"compile different instances: {bad}")
+        times[name] = (loaded["1s"], loaded["0s"])
+    return times
+
+
+def start_cli_run(results):
+    """Run management and importance sampling through the CLI on the
+    card, five processes beside the other CLI phases, each counting its
+    kernel launches:
+    (a) resume on ssn at the flagship settings, capacities fixed at the
+        autoscaled values for 200 iterations: U runs 200 iterations with
+        a checkpoint and a JSONL log every 50; A runs 100 with a
+        checkpoint; B, started when A ends, resumes A's file for 100 more.
+        B's checkpoint equals U's bit for bit (every state field and the
+        generator's state), and so do the final lb_est and mc_ub; U's log
+        holds 4 period records and one final record;
+    (b) ssn drawn from a defensive mixture proposal (written here from
+        ssn.sto) for IS_ITERS iterations under --profile: bounds finite,
+        stored weights positive and finite, total_weight their sum, the
+        weights' effective sample size printed, and the trace names B1's
+        cluster kernel and B3's kernel;
+    (c) lands from the uniform proposal, 200 iterations: stored weights
+        in {0.9, 1.2}, total_weight / 200 within 0.15 of 1, mc_ub within
+        6 of 381.8533 (tests/test_sampling.py:266-295);
+    (d) here, while they run: ssn and storm through the native and the
+        Python parsers compile equal instances; both parse times
+        printed."""
+    import tempfile
+    from sqlp_tpu_torch.config import SDConfig, autoscale_capacities
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_run_")
+
+    def at(name):
+        return os.path.join(tmp, name)
+
+    cfg = autoscale_capacities(SDConfig(max_scenarios=4096,
+                                        max_dual_vertices=2048), 200)
+    ssn = ["solve", "ssn", "--schedule", "adaptive", "--rho", "1e-3",
+           "--seed", "0", "--device", "cuda", "--no-auto-capacity",
+           "--max-scenarios", str(cfg.max_scenarios),
+           "--max-duals", str(cfg.max_dual_vertices)]
+    _write_defensive_proposal(at("ssn_proposal.sto"))
+    with open(at("lands_proposal.sto"), "w") as fh:
+        fh.write(LANDS_UNIFORM)
+    resume = ssn + ["--iters", "100", "--resume", at("A.npz"),
+                    "--checkpoint", at("B.npz")]
+    wait = _start("cli_run", {
+        "U": ssn + ["--iters", "200", "--checkpoint", at("U.npz"), "--log",
+                    at("U.jsonl"), "--log-every", "50"],
+        "A": ssn + ["--iters", "100", "--checkpoint", at("A.npz")],
+        "is_ssn": ssn + ["--iters", str(IS_ITERS), "--proposal-sto",
+                         at("ssn_proposal.sto"), "--checkpoint",
+                         at("is_ssn.npz"), "--profile", at("profile")],
+        "is_lands": ["solve", "lands", "--iters", "200", "--proposal-sto",
+                     at("lands_proposal.sto"), "--checkpoint",
+                     at("is_lands.npz"), "--eval-samples", "4096",
+                     "--device", "cuda"]}, counted=True,
+        after={"A": ("B", resume)})
+    t0 = time.perf_counter()
+    for name, (native_s, python_s) in _parse_equal().items():
+        log(f"[cli_run] {name}: native and Python parsers compile equal "
+            f"instances; .cor + .sto parsed in {native_s:.4f}s native, "
+            f"{python_s:.4f}s Python")
+    log(f"[cli_run] parser check {time.perf_counter() - t0:.1f}s")
+
+    def fields(name):
+        import numpy as np
+        with np.load(at(name)) as z:
+            return {k: z[k] for k in z.files}
+
+    def bounds(out):
+        m = re.search(r"lb_est=(\S+) mc_ub=(\S+) \(95% \+- (\S+),", out)
+        if m is None:
+            raise AssertionError("a cli_run run printed no bounds")
+        return m.groups()
+
+    def finish():
+        import shutil
+        try:
+            check(wait())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def check(outs):
+        import numpy as np
+        for name, (_, err) in outs.items():
+            done = re.findall(r"done: .*", err)
+            log(f"[cli_run] {name}: {done[-1] if done else 'no done line'}")
+        # (a) the resumed run against the uninterrupted one
+        fu, fb = fields("U.npz"), fields("B.npz")
+        diff = sorted(k for k in set(fu) | set(fb) if k not in fu
+                      or k not in fb or fu[k].dtype != fb[k].dtype
+                      or not np.array_equal(fu[k], fb[k]))
+        bu, bb = bounds(outs["U"][0]), bounds(outs["B"][0])
+        recs = [json.loads(line) for line in open(at("U.jsonl"))]
+        log(f"[cli_run] resume: B.npz against U.npz, {len(fu)} entries "
+            f"(torch_generator_state among them: "
+            f"{'torch_generator_state' in fu}), differing: {diff}; "
+            f"U lb_est={bu[0]} mc_ub={bu[1]}, B lb_est={bb[0]} "
+            f"mc_ub={bb[1]}; U.jsonl its {[r['it'] for r in recs]}")
+        if diff or "torch_generator_state" not in fu:
+            raise AssertionError(f"resumed ssn run not bitwise: {diff}")
+        if bu[:2] != bb[:2]:
+            raise AssertionError(f"resumed ssn bounds {bb} != {bu}")
+        if [r.get("final", False) for r in recs] != [False] * 4 + [True]:
+            raise AssertionError(f"U.jsonl holds {recs}")
+        # (b) ssn from the defensive proposal
+        lb, ub, hw = map(float, bounds(outs["is_ssn"][0]))
+        f = fields("is_ssn.npz")
+        n = int(f["n_scen"][0])
+        w = f["scen_weights"][0, :n].astype(np.float64)
+        ess = w.sum() ** 2 / np.sum(w * w)
+        tw = float(f["total_weight"][0])
+        trace, size, found = _trace_kernels(
+            at("profile"), ("pdhg_cluster_kernel<float, false",
+                            "admm_cluster_kernel<"))
+        b1, b3 = found.values()
+        log(f"[cli_run] ssn importance sampling ({IS_ITERS} iterations): "
+            f"lb_est={lb:.6f} mc_ub={ub:.6f} +- {hw:.4f}; {n} stored "
+            f"weights in [{w.min():.6g}, {w.max():.6g}], sum {w.sum():.6f}, "
+            f"total_weight {tw:.6f}, ESS {ess:.2f} of {n}")
+        log(f"[cli_run] trace {os.path.basename(trace)}: {size} bytes; "
+            f"B1 cluster {b1!r}; B3 {b3!r}")
+        if not (math.isfinite(lb) and math.isfinite(ub)):
+            raise AssertionError(f"ssn importance-sampling bounds {lb} {ub}")
+        if n != int(f["n_stream"][0]) or not np.all(np.isfinite(w)) \
+                or not np.all(w > 0.0) \
+                or abs(tw - w.sum()) > 1e-5 * w.sum():
+            raise AssertionError(f"ssn stored weights do not sum to "
+                                 f"total_weight {tw}: {w}")
+        if not (b1 and b3):
+            raise AssertionError(f"the ssn trace names no B1 cluster or no "
+                                 f"B3 kernel: {found}")
+        # (c) lands from the uniform proposal
+        _, ub, _ = map(float, bounds(outs["is_lands"][0]))
+        f = fields("is_lands.npz")
+        w = f["scen_weights"][0, :int(f["n_scen"][0])]
+        ratio = float(f["total_weight"][0]) / 200
+        log(f"[cli_run] lands importance sampling: weights "
+            f"{sorted(set(np.round(w.astype(np.float64), 6).tolist()))}, "
+            f"total_weight / 200 = {ratio:.6f}, mc_ub={ub:.6f}")
+        if not (set(np.round(w.astype(np.float64), 6)) <= {0.9, 1.2}
+                and abs(ratio - 1.0) < 0.15
+                and abs(ub - LANDS_OPT) < 6.0):
+            raise AssertionError("lands importance sampling missed the "
+                                 "reference's gates")
+        for name, (out, err) in outs.items():
+            counts = json.loads(re.findall(r"chip_smoke launches: (\{.*\})",
+                                           err)[-1])
+            log(f"[cli_run] {name} launches: {json.dumps(counts)}")
+            b1 = [k for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
+                              "pdhg_halpern_tile") if counts[k]]
+            if not b1:
+                raise AssertionError(f"cli_run {name}: B1 never launched")
+            _record_launches(results, counts, b1 + ["admm_round"],
+                             f"cli_run_{name}")
+    return finish
+
+
 # the CLI phases start their subprocesses when they are reached and are
 # waited for together, before the next phase that uses the card in this
 # process (or at the end): the lands runs are host-bound and overlap
 CLI_PHASES = {"cli": lambda results: start_cli(),
               "cli_rep": lambda results: start_cli_rep(),
               "cli_cert": lambda results: start_cli_cert(),
-              "cli_gap": start_cli_gap}
+              "cli_gap": start_cli_gap,
+              "cli_run": start_cli_run}
 
 
 def run_phase(ph, args, results, memo):
@@ -1712,7 +1991,8 @@ def main() -> int:
                     help="samples of the certified path's MC panels")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "certify,cert_polish,cli,cli_rep,cli_cert,cli_gap")
+                    "certify,cert_polish,cli,cli_rep,cli_cert,cli_gap,"
+                    "cli_run")
     args = ap.parse_args()
     phases = args.phases.split(",")
 

@@ -3,12 +3,13 @@
 A port of the JAX package ``sqlp_tpu`` (the reference, kept beside it) to
 PyTorch on an NVIDIA H100. Layout mirrors the reference:
 
-  models/    SMPS parsers, stage templates, scenario model, instance tensors
+  models/    SMPS parsers (native C++ and Python), stage templates, scenario
+             model, instance tensors
   ops/       batched PDHG LP solver, ADMM prox-QP master, dual crossover;
              ops/cuda/ wraps the hand-written CUDA kernels (csrc/) and
              holds their plain PyTorch versions
   sd/        dual pool, cuts, master assembly, the SD step, driver
-  utils/     process configuration
+  utils/     process configuration, checkpoints, JSONL metrics, profiling
 
 This package imports torch, numpy and scipy, never jax.
 """

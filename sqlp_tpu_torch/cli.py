@@ -1,11 +1,16 @@
 """Command-line entry point of the PyTorch port.
 
-Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-189,
+Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-183,
 ``_solve_replicated`` :192-293, ``cmd_ef`` :296-318, ``cmd_evaluate``
 :321-333, the parser :341-470):
 
     python -m sqlp_tpu_torch solve ssn --iters 3000 --schedule adaptive --rho 1e-3
     python -m sqlp_tpu_torch solve ssn --iters 3000 --eval-every 500 --stop-gap 0.01
+    python -m sqlp_tpu_torch solve ssn --iters 3000 --log run.jsonl \
+        --checkpoint run.npz --checkpoint-every 500 --no-auto-capacity
+    python -m sqlp_tpu_torch solve ssn --iters 1000 --resume run.npz \
+        --no-auto-capacity
+    python -m sqlp_tpu_torch solve lands --proposal-sto proposal.sto
     python -m sqlp_tpu_torch solve ssn --replications 8 --certify
     python -m sqlp_tpu_torch solve lands --replications 4 --target-gap 0.01
     python -m sqlp_tpu_torch ef lands --scenarios 100
@@ -13,12 +18,17 @@ Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-189,
 
 runs on the chosen device (``--device``, default ``cuda``; there is no
 silent CPU fallback). ``solve`` runs SD in chunks; at the chunk
-boundaries it logs (``--log-every``), estimates the Monte-Carlo upper
-bound (``--eval-every``), sharpens the dual pool with host-exact duals
-(``--sharpen-every``) and applies the stopping rules (``--stop-gap``,
-``--stop-stall-window``), each exactly at the multiples of its own
-period, and ends with the Monte-Carlo upper bound and its confidence
-half-width. With ``--replications R`` it runs R replications in lockstep
+boundaries it logs (``--log-every``, into the JSONL file ``--log``),
+estimates the Monte-Carlo upper bound (``--eval-every``), sharpens the
+dual pool with host-exact duals (``--sharpen-every``), writes the
+checkpoint ``--checkpoint`` (``--checkpoint-every``) and applies the
+stopping rules (``--stop-gap``, ``--stop-stall-window``), each exactly at
+the multiples of its own period, and ends with a checkpoint, the
+Monte-Carlo upper bound and its confidence half-width. ``--resume``
+continues a checkpoint's trajectory (its state and generator),
+``--profile DIR`` writes a ``torch.profiler`` trace of the loop into DIR,
+``--proposal-sto`` draws the scenario stream from an importance-sampling
+proposal. With ``--replications R`` it runs R replications in lockstep
 and ends with the compromise decision and its bound; with ``--certify``
 also with a certified statistical lower bound, the decision picked among
 the compromise and the certification's EF argmins, and the certified
@@ -26,9 +36,10 @@ optimality gap (:func:`certify_replications`); with ``--target-gap`` it
 certifies every ``--certify-every`` iterations and stops at the target
 certified gap, ending with one JSON line. ``ef`` solves a sampled
 extensive form, ``evaluate`` estimates the expected cost of a first-stage
-decision. Flags of the reference CLI that the port does not carry yet are
-accepted by the parser and refused with the ROADMAP item that will bring
-them.
+decision. The reference CLI's ``--mesh`` is accepted by the parser and
+refused with the ROADMAP item that will bring it. The replicated path
+refuses ``--proposal-sto`` (as the reference does) and the run-management
+flags (which the reference's replicated path ignores).
 """
 
 from __future__ import annotations
@@ -43,8 +54,9 @@ import numpy as np
 # flag -> (the values the port takes, ROADMAP item that brings the rest)
 _REFUSED = {
     "mesh": ((0,), "A14 (multi-device)"),
-    "proposal_sto": ((None,), "A13b (importance sampling proposal)"),
 }
+# single-run flags the replicated path does not take
+_SINGLE_RUN = ("log", "checkpoint", "checkpoint_every", "resume", "profile")
 
 
 def _build_config(args):
@@ -93,12 +105,24 @@ def cmd_solve(args) -> int:
     from sqlp_tpu_torch.sd.driver import SDSolver
     from sqlp_tpu_torch.sd.state import default_epigraph_spec
     from sqlp_tpu_torch.sd.stopping import GapRule, LowerBoundStabilization
+    from sqlp_tpu_torch.utils.checkpoint import load_state, save_state
+    from sqlp_tpu_torch.utils.metrics import MetricsLogger
+    from sqlp_tpu_torch.utils.profiling import trace
 
     if args.replications > 1 and (args.mesh or args.proposal_sto):
         # the reference's own refusal (sqlp_tpu/cli.py:75-82)
         print("error: --mesh/--shard-duals/--proposal-sto are not "
               "supported with --replications > 1 (replications batch "
               "on a single device program); drop one of the flags",
+              file=sys.stderr)
+        return 2
+    single = [f"--{f.replace('_', '-')}" for f in _SINGLE_RUN
+              if getattr(args, f)]
+    if args.replications > 1 and single:
+        print(f"error: {'/'.join(single)} "
+              f"{'is' if len(single) == 1 else 'are'} not supported with "
+              f"--replications > 1 (logging, checkpoints, resume and "
+              f"profiling follow a single run); drop the flag",
               file=sys.stderr)
         return 2
     if (args.certify or args.target_gap) and args.replications < 2:
@@ -133,11 +157,23 @@ def cmd_solve(args) -> int:
                                       dtype=config.jdtype, device=device)
     if args.replications > 1:
         return _solve_replicated(args, config, inst, espec, x0, device)
+    proposal = None
+    if args.proposal_sto:
+        from sqlp_tpu_torch.models.instance import load_proposal
+        proposal = load_proposal(inst, args.proposal_sto,
+                                 dtype=config.jdtype)
+        print(f"importance sampling from proposal {args.proposal_sto}",
+              file=sys.stderr)
     solver = SDSolver(inst, config, espec=espec, x0=x0, seed=args.seed,
-                      n_epi=E)
+                      n_epi=E, proposal=proposal)
     print(f"recourse lower bound: {solver.recourse_lb:.6g}"
           + (" (auto)" if args.epi_lb is None
              else f" (user: {args.epi_lb:g})"), flush=True)
+    if args.resume:
+        solver.state = load_state(args.resume, template=solver.state,
+                                  generator=solver.generator)
+        print(f"resumed from {args.resume} at iter {int(solver.state.it)}",
+              file=sys.stderr)
 
     stab = LowerBoundStabilization(window=args.stop_stall_window,
                                    rel_tol=args.stop_stall_tol) \
@@ -151,51 +187,69 @@ def cmd_solve(args) -> int:
     # that is set, so every periodic action fires at the multiples of its
     # own period; the stall rule reads the multiples of the smallest one
     periods = [p for p in (args.log_every, args.eval_every,
-                           args.sharpen_every) if p]
+                           args.checkpoint_every, args.sharpen_every) if p]
     base = min(periods) if periods else args.iters
+    logger = MetricsLogger(args.log)
     t0 = time.time()
     done = 0
-    while done < args.iters:
-        nxt = min([(done // p + 1) * p for p in periods] + [args.iters])
-        last = solver.run(nxt - done)
-        done = nxt
-        it = int(last["it"])
-        stopped = None
-        if args.log_every and done % args.log_every == 0:
-            print(f"iter {it}: lb_est={last['cand_est']:.4f} "
-                  f"rho={last['rho']:.4g} duals={int(last['n_duals'])} "
-                  f"cuts={int(last['n_cuts_live'])}", file=sys.stderr)
-        if args.eval_every and done % args.eval_every == 0:
-            # the stop-gap test inflates ub by its sampling half-width, so
-            # a lucky draw cannot stop SD early
-            ub, ub_hw, _ = solver.evaluate_ci(
-                min_samples=args.eval_samples, max_samples=args.eval_samples,
-                seed=args.seed + it, sampling=args.sampling)
-            print(f"iter {it}: mc_ub={ub:.4f} (+-{ub_hw:.4f})",
-                  file=sys.stderr)
-            if gap_rule and gap_rule.check(solver.lower_estimate, ub,
-                                           ub_half_width=ub_hw):
-                stopped = f"gap <= {args.stop_gap:g} at iter {it}"
-        if args.sharpen_every and done % args.sharpen_every == 0 \
-                and done < args.iters:
-            sh = solver.sharpen_duals_host(k=args.sharpen_k)
-            print(f"iter {it}: sharpened {sh['n_solved']} scenarios "
-                  f"(+{sh['n_new']} exact duals, max argmax slack "
-                  f"{sh['max_slack']:.3g})", file=sys.stderr)
-        if stab and (done % base == 0 or done == args.iters) \
-                and stab.update(float(last["inc_est"])):
-            stopped = stopped or f"incumbent estimate stabilized at iter {it}"
-        if stopped:
-            print(f"stopping rule: {stopped}", file=sys.stderr)
-            break
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with trace(args.profile):
+        while done < args.iters:
+            nxt = min([(done // p + 1) * p for p in periods] + [args.iters])
+            last = solver.run(nxt - done)
+            done = nxt
+            it = int(last["it"])
+            stopped = None
+            if args.log_every and done % args.log_every == 0:
+                logger.log(last, it=it)
+                print(f"iter {it}: lb_est={last['cand_est']:.4f} "
+                      f"rho={last['rho']:.4g} duals={int(last['n_duals'])} "
+                      f"cuts={int(last['n_cuts_live'])}", file=sys.stderr)
+            if args.eval_every and done % args.eval_every == 0:
+                # the stop-gap test inflates ub by its sampling half-width,
+                # so a lucky draw cannot stop SD early
+                ub, ub_hw, _ = solver.evaluate_ci(
+                    min_samples=args.eval_samples,
+                    max_samples=args.eval_samples, seed=args.seed + it,
+                    sampling=args.sampling)
+                logger.log({"it": it, "mc_upper_bound": ub,
+                            "mc_half_width": ub_hw})
+                print(f"iter {it}: mc_ub={ub:.4f} (+-{ub_hw:.4f})",
+                      file=sys.stderr)
+                if gap_rule and gap_rule.check(solver.lower_estimate, ub,
+                                               ub_half_width=ub_hw):
+                    stopped = f"gap <= {args.stop_gap:g} at iter {it}"
+            if args.sharpen_every and done % args.sharpen_every == 0 \
+                    and done < args.iters:
+                sh = solver.sharpen_duals_host(k=args.sharpen_k)
+                logger.log({"it": it, "sharpen": sh})
+                print(f"iter {it}: sharpened {sh['n_solved']} scenarios "
+                      f"(+{sh['n_new']} exact duals, max argmax slack "
+                      f"{sh['max_slack']:.3g})", file=sys.stderr)
+            if stab and (done % base == 0 or done == args.iters) \
+                    and stab.update(float(last["inc_est"])):
+                stopped = stopped or \
+                    f"incumbent estimate stabilized at iter {it}"
+            if args.checkpoint and args.checkpoint_every \
+                    and done % args.checkpoint_every == 0:
+                save_state(args.checkpoint, solver.state, solver.generator,
+                           instance=inst.name)
+            if stopped:
+                print(f"stopping rule: {stopped}", file=sys.stderr)
+                break
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     elapsed = time.time() - t0
 
+    if args.checkpoint:
+        save_state(args.checkpoint, solver.state, solver.generator,
+                   instance=inst.name)
     ub, ub_hw, ub_n = solver.evaluate_ci(min_samples=args.eval_samples,
                                          max_samples=args.eval_samples,
                                          seed=args.seed + 1,
                                          sampling=args.sampling)
+    logger.log({"it": int(solver.state.it), "mc_upper_bound": ub,
+                "mc_half_width": ub_hw, "mc_samples": ub_n, "final": True})
+    logger.close()
     print(f"done: {done} iters in {elapsed:.1f}s "
           f"({done / max(elapsed, 1e-9):.1f} it/s)", file=sys.stderr)
     print(f"lb_est={solver.lower_estimate:.6f} mc_ub={ub:.6f} "
@@ -426,7 +480,25 @@ def build_parser() -> argparse.ArgumentParser:
     ps = sub.add_parser("solve", help="run SD iterations on an instance")
     ps.add_argument("instance")
     ps.add_argument("--iters", type=int, default=1000)
+    ps.add_argument("--log", default=None, metavar="PATH",
+                    help="append one JSON record per --log-every period, "
+                         "Monte-Carlo bound and sharpening, and a final "
+                         "record, to this JSONL file")
     ps.add_argument("--log-every", type=int, default=100)
+    ps.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="write the solver state and its generator to this "
+                         ".npz every --checkpoint-every iterations and at "
+                         "the end")
+    ps.add_argument("--checkpoint-every", type=int, default=0)
+    ps.add_argument("--resume", default=None, metavar="PATH",
+                    help="continue from a checkpoint (the capacities must "
+                         "match: pass the run's own, with "
+                         "--no-auto-capacity); runs --iters more "
+                         "iterations")
+    ps.add_argument("--profile", default=None, metavar="DIR",
+                    help="torch.profiler trace of the iteration loop "
+                         "(host operators and CUDA kernels), written into "
+                         "DIR as a Chrome trace")
     ps.add_argument("--eval-samples", type=int, default=1000)
     ps.add_argument("--x0", default="zeros", choices=["zeros", "crash"],
                     help="start from zeros or from the first-stage x of a "
@@ -487,8 +559,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "pool (not at the final iteration); 0 = off")
     ps.add_argument("--sharpen-k", type=int, default=32,
                     help="top-K winners per --sharpen-every round")
-    # a reference flag the port refuses for now (see _REFUSED)
-    ps.add_argument("--proposal-sto", default=None)
+    ps.add_argument("--proposal-sto", default=None, metavar="PATH",
+                    help="importance sampling: draw the SD scenario stream "
+                         "from this alternate .sto file (the same random "
+                         "positions) and weight each scenario by the "
+                         "exact density ratio, on the device")
     common(ps)
     ps.set_defaults(fn=cmd_solve)
 

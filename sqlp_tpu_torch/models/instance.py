@@ -2,11 +2,12 @@
 
 Port of record: ``sqlp_tpu/models/instance.py`` (``InstanceArrays`` :37-56,
 ``Instance`` :59-92, ``compile_instance`` :95-161, ``find_instance_dir``
-:176, ``load_instance`` :186). The host compile (bound folding included)
-is the same numpy code, so the arrays are bitwise equal to the JAX
-package's; only the final placement differs: ``dtype`` and ``device`` are
-explicit arguments. ``device`` defaults to the CUDA card and raises on a
-host without one (``utils/torchsetup.py:resolve_device``).
+:176, ``load_instance`` :186, ``load_proposal`` :207-237). The host
+compile (bound folding included) is the same numpy code, so the arrays
+are bitwise equal to the JAX package's; only the final placement differs:
+``dtype`` and ``device`` are explicit arguments. ``device`` defaults to
+the CUDA card and raises on a host without one
+(``utils/torchsetup.py:resolve_device``).
 
     stage 1:  min c@x   s.t. A1 x {sense} b1,  lb1 <= x <= ub1
     stage 2:  min q@y   s.t. T x + W y {sense} r,  lb2 <= y <= ub2
@@ -220,3 +221,28 @@ def load_instance(name_or_dir: str, dtype: torch.dtype = torch.float32,
     sto = read_sto(os.path.join(path, f"{name}.sto"))
     return compile_instance(cor, tim, sto, name=name, dtype=dtype,
                             device=device, fold_bounds=fold_bounds)
+
+
+def load_proposal(inst: Instance, sto_path: str,
+                  dtype: Optional[torch.dtype] = None) -> ScenarioModel:
+    """Compile an alternate .sto file as an importance-sampling proposal
+    over the instance's stage-2 template, on the instance's device.
+
+    The proposal must cover the same random positions (row / column) as
+    the instance's own model: the density ratio p_target / p_proposal is
+    defined position by position. Raises ValueError otherwise. Used by
+    ``SDSolver(proposal=...)`` and the CLI's ``--proposal-sto``.
+    """
+    sto = read_sto(sto_path)
+    model = build_scenario_model(sto, inst.sp2,
+                                 dtype=dtype or inst.arrays.r.dtype,
+                                 device=inst.device)
+    tgt = inst.scenario_model
+    if model.n_rv != tgt.n_rv or not all(
+            torch.equal(getattr(model, f).cpu(), getattr(tgt, f).cpu())
+            for f in ("rv_row", "rv_is_rhs", "rv_col", "rv_is_cost",
+                      "rv_ycol")):
+        raise ValueError(
+            f"proposal {sto_path} does not cover the same random "
+            f"positions as instance {inst.name}'s sto file")
+    return model

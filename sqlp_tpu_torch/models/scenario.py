@@ -3,19 +3,20 @@
 Port of record: ``sqlp_tpu/models/scenario.py`` (``ScenarioModel`` :52-89,
 ``build_scenario_model`` :92-196, ``_compute_seed_dual`` :199-257,
 ``_uniform_panel`` :260-287, ``sample_values``/``sample_deltas``
-:290-357, ``values_to_deltas`` :360, ``deltas_to_rhs`` :418,
+:290-357, ``values_to_deltas`` :360, ``scenario_log_pdf`` :367-400,
+``sample_importance`` :403-415, ``deltas_to_rhs`` :418,
 ``effective_rhs_deltas`` :429, ``cost_panel`` :447). The tables are
 compiled by the same host numpy code, then placed on the requested
 device. Sampling draws from an explicit ``torch.Generator``; it cannot
 reproduce the JAX PRNG stream, so the tests hand both packages the same
 numpy draws instead (the deltas, or the uniform panels in place of
-``_uniform_panel``). ``scenario_log_pdf`` / ``sample_importance`` are not
-ported (ROADMAP A13).
+``_uniform_panel``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List
 
 import numpy as np
@@ -311,6 +312,53 @@ def values_to_deltas(model: ScenarioModel, values) -> torch.Tensor:
     """Raw scenario values [..., R] (sto-position order) -> deltas."""
     return torch.as_tensor(values, dtype=model.base.dtype,
                            device=model.base.device) - model.base
+
+
+def scenario_log_pdf(model: ScenarioModel, values) -> torch.Tensor:
+    """log p(values) under the model, summed over the independent
+    positions, in the model's dtype: [..., R] raw values -> [...].
+
+    A discrete position contributes the log mass of the table entry within
+    a relative 1e-6 of the value (the largest such mass, as the reference
+    takes it; no shipped .sto lists a value twice at one position), and
+    -inf off the support; a normal position its log density; a uniform
+    one -log(width) inside its box and -inf outside.
+    """
+    dt = model.values.dtype
+    v = torch.as_tensor(values, dtype=dt,
+                        device=model.values.device)[..., None]
+    pmf = torch.diff(model.cdf, dim=-1,
+                     prepend=torch.zeros_like(model.cdf[..., :1]))
+    close = torch.abs(model.values - v) <= 1e-6 * (1.0 + torch.abs(
+        model.values))
+    p_disc = torch.amax(torch.where(close, pmf, torch.zeros_like(pmf)),
+                        dim=-1)
+    log_disc = torch.log(torch.clamp_min(p_disc, 1e-300))
+    vr = v[..., 0]
+    std = torch.clamp_min(model.std, 1e-30)
+    z = (vr - model.mean) / std
+    log_norm = -0.5 * z * z - 0.5 * math.log(2.0 * math.pi) - torch.log(std)
+    in_box = (vr >= model.left) & (vr <= model.left + model.width)
+    log_unif = torch.where(
+        in_box, -torch.log(torch.clamp_min(model.width, 1e-30)),
+        torch.full((), float("-inf"), dtype=dt, device=vr.device))
+    lp = torch.where(model.dist_type == DIST_DISCRETE, log_disc,
+                     torch.where(model.dist_type == DIST_NORMAL, log_norm,
+                                 log_unif))
+    return torch.sum(lp, dim=-1)
+
+
+def sample_importance(generator: torch.Generator, target: ScenarioModel,
+                      proposal: ScenarioModel, batch: int,
+                      method: str = "iid"):
+    """Importance sampling: ``batch`` draws from ``proposal``, weighted
+    for ``target``. Returns (deltas [batch, R] against the target's
+    template, weights [batch]) with w = p_target(v) / p_proposal(v), on
+    the device: ready for ``SDSolver.step_scenarios(deltas=...,
+    weights=...)``."""
+    vals = sample_values(generator, proposal, batch, method=method)
+    logw = scenario_log_pdf(target, vals) - scenario_log_pdf(proposal, vals)
+    return vals - target.base, torch.exp(logw)
 
 
 def deltas_to_rhs(model: ScenarioModel, deltas: torch.Tensor,

@@ -1,7 +1,7 @@
 """SMPS .cor (MPS core file) parser.
 
-Copy of ``sqlp_tpu/models/smps_cor.py`` (port of record), Python path
-only.
+Copy of ``sqlp_tpu/models/smps_cor.py`` (port of record); ``read_cor``
+goes through the native parser of ``models/native.py`` by default.
 
 Behavioral port of record: src/smps/smps_cor.jl in the reference
 (``_tokenize_cor`` :26-58, ``_parse_column_to_matrix`` :81-101,
@@ -153,11 +153,12 @@ def parse_bounds(tokens: list, col_names: Sequence[str]) -> tuple:
 
 
 def read_cor(cor_path: str) -> CorData:
-    """Read a cor file (smps_cor.jl:160-194) with the pure-Python parser.
-
-    The native C++ loader of ``sqlp_tpu/models/native.py`` is not carried
-    over yet; the Python path produces identical CorData.
-    """
+    """Read a cor file (smps_cor.jl:160-194) with the native C++ parser
+    (``models/native.py``, built at first use), or with the Python parser
+    under ``SQLP_TPU_TORCH_NATIVE=0``. Both give identical CorData."""
+    from sqlp_tpu_torch.models import native
+    if native.enabled():
+        return native.read_cor_native(cor_path)
     return read_cor_py(cor_path)
 
 

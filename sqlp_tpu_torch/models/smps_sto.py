@@ -1,7 +1,7 @@
 """SMPS .sto (stochastic file) parser + host-side sampling.
 
-Copy of ``sqlp_tpu/models/smps_sto.py`` (port of record), Python path
-only.
+Copy of ``sqlp_tpu/models/smps_sto.py`` (port of record); ``read_sto``
+goes through the native parser of ``models/native.py`` by default.
 
 Behavioral port of record: src/smps/smps_sto.jl in the reference
 (distribution types :4-28, ``spStoType`` :33-36, ``read_sto`` :41-111,
@@ -67,9 +67,12 @@ class StoData:
 
 
 def read_sto(sto_path: str) -> StoData:
-    """Read a sto file (smps_sto.jl:41-111) with the pure-Python parser
-    (the native loader of ``sqlp_tpu/models/native.py`` is not carried
-    over yet)."""
+    """Read a sto file (smps_sto.jl:41-111) with the native C++ parser
+    (``models/native.py``, built at first use), or with the Python parser
+    under ``SQLP_TPU_TORCH_NATIVE=0``. Both give identical StoData."""
+    from sqlp_tpu_torch.models import native
+    if native.enabled():
+        return native.read_sto_native(sto_path)
     return read_sto_py(sto_path)
 
 

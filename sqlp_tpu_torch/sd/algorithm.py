@@ -20,8 +20,9 @@ The step is eager PyTorch: branches that read device data (the crossover
 gate, the cut-refresh gate, the candidate repair loop, the solvers'
 stopping tests) read it on the host. The replicated step runs R SD
 replications in lockstep on a stacked state: one PDHG solve over the
-flattened panel, one batched master QP. Left out: importance sampling
-(``proposal``, ROADMAP A13).
+flattened panel, one batched master QP. Importance sampling
+(``proposal=``) is a single-run feature, as in the reference's CLI: the
+replicated step takes no proposal.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 
 from sqlp_tpu_torch.config import SDConfig
 from sqlp_tpu_torch.models.scenario import (cost_panel, effective_rhs_deltas,
-                                            sample_deltas)
+                                            sample_deltas, sample_values,
+                                            scenario_log_pdf)
 from sqlp_tpu_torch.ops.crossover import sharpen_duals
 from sqlp_tpu_torch.ops.pdhg import PreparedLP, solve_batch
 from sqlp_tpu_torch.ops.prox_qp import solve_qp
@@ -128,10 +130,12 @@ def _refresh_due(state: SDState, config: SDConfig) -> bool:
 def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
                     config: SDConfig, generator: torch.Generator,
                     deltas: Optional[torch.Tensor],
-                    weights: Optional[torch.Tensor]):
+                    weights: Optional[torch.Tensor], proposal=None):
     """Steps 1-2a: sample / append scenarios and build the [2EB, m2]
     subproblem RHS panel plus the pool dual warm start. Returns
-    (store, H, L0, Q)."""
+    (store, H, L0, Q). With ``proposal`` (a ScenarioModel over the same
+    positions) the E*B values are drawn from it and weighted by the exact
+    density ratio p_model / p_proposal, on the device."""
     E = espec.n_epi
     B = config.scenarios_per_iter
     S = config.max_scenarios
@@ -145,6 +149,16 @@ def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
                 f"user scenarios must be [n_epi={E}, B={B}, R={model.n_rv}], "
                 f"got {tuple(deltas.shape)} (B is config.scenarios_per_iter)")
         new_deltas = deltas.to(dt)
+    elif proposal is not None:
+        if weights is not None:
+            raise ValueError("a proposal computes its own weights: pass "
+                             "proposal= or weights=, not both")
+        vals = sample_values(generator, proposal, E * B,
+                             method=config.sampling)
+        logw = scenario_log_pdf(model, vals) - scenario_log_pdf(proposal,
+                                                                vals)
+        new_deltas = (vals - model.base).to(dt).reshape(E, B, model.n_rv)
+        weights = torch.exp(logw).to(dt).reshape(E, B)
     else:
         new_deltas = sample_deltas(generator, model, E * B,
                                    method=config.sampling
@@ -436,19 +450,22 @@ def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
 def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
             state: SDState, config: SDConfig, generator: torch.Generator,
             deltas: Optional[torch.Tensor] = None,
-            weights: Optional[torch.Tensor] = None
+            weights: Optional[torch.Tensor] = None, proposal=None
             ) -> Tuple[SDState, dict]:
     """One SD iteration: state -> (state', stats).
 
     ``generator`` (on the state's device) draws the scenarios and the
     reservoir's choices; ``deltas`` ([E, B, R]) supplies the iteration's
     scenarios instead of sampling them; ``weights`` ([E, B], default 1) is
-    the per-scenario weight of ``add_scenario!``.
+    the per-scenario weight of ``add_scenario!``; ``proposal`` (a
+    ScenarioModel over the same positions) draws the scenarios from it
+    and weights each by the exact density ratio (importance sampling,
+    no host read).
     """
     if _refresh_due(state, config):
         state = _refresh_cuts(arrays, model, state)
     store, H, L0, Q = _sample_and_rhs(arrays, model, espec, state, config,
-                                      generator, deltas, weights)
+                                      generator, deltas, weights, proposal)
 
     sub_obj, sub_Y, Pi, sub_stats = solve_batch(
         prep_sub, H, config.pdhg, Y0=state.sub_warm_Y, L0=L0, Q=Q)
@@ -591,16 +608,17 @@ def _pack(rows: List[torch.Tensor]) -> np.ndarray:
 
 def sd_run(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
            state: SDState, config: SDConfig, n_steps: int,
-           generator: torch.Generator
+           generator: torch.Generator, proposal=None
            ) -> Tuple[SDState, np.ndarray, Tuple[str, ...]]:
-    """Run n_steps SD iterations. Returns (state, packed, keys): packed is
-    one [n_steps, n_keys] float32 host array of the per-iteration scalar
-    stats, column j named keys[j], read back once at the end."""
+    """Run n_steps SD iterations (drawing from ``proposal`` when given).
+    Returns (state, packed, keys): packed is one [n_steps, n_keys] float32
+    host array of the per-iteration scalar stats, column j named keys[j],
+    read back once at the end."""
     rows: List[torch.Tensor] = []
     keys: Tuple[str, ...] = ()
     for _ in range(n_steps):
         state, stats = sd_step(arrays, model, espec, prep_sub, state,
-                               config, generator)
+                               config, generator, proposal=proposal)
         if not keys:
             keys = scalar_stat_keys(stats)
         rows.append(torch.stack([

@@ -18,8 +18,9 @@ reference asserts a precondition a caller can reach, the port raises
 ValueError. Beyond the reference: with ``antithetic_reps`` every
 per-replication array, ``lb_per_rep`` included, keeps length R, and
 ``solve_to_certified_gap`` splits its confidence over its planned looks.
-Not ported (refused by the CLI, absent here): meshes, importance-sampling
-proposals and checkpoint I/O.
+``SDSolver(proposal=...)`` draws the scenario stream from an
+importance-sampling proposal (``models/instance.py:load_proposal``).
+Not ported (refused by the CLI, absent here): meshes.
 """
 
 from __future__ import annotations
@@ -70,7 +71,11 @@ class SDSolver:
 
     def __init__(self, inst: Instance, config: SDConfig = SDConfig(),
                  espec: Optional[EpigraphSpec] = None, x0=None,
-                 seed: int = 0, n_epi: int = 1):
+                 seed: int = 0, n_epi: int = 1, proposal=None):
+        """``proposal`` (a ScenarioModel over the same positions, see
+        ``models.instance.load_proposal``) switches the scenario stream
+        to importance sampling on the device: draws come from the
+        proposal, weights are the exact density ratios."""
         configure_torch()
         self.inst = inst
         self.device = inst.device
@@ -137,6 +142,7 @@ class SDSolver:
                 f"the feasible set (1-norm distance {moved:.6g})")
         self.state: SDState = init_state(inst, self.espec, config, x0)
         self.scenario_model = inst.scenario_model
+        self.proposal = proposal
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.host_fallback_count = 0
@@ -156,7 +162,7 @@ class SDSolver:
         unscaled."""
         self.state, stats = sd_step(
             self.arrays, self.scenario_model, self.espec, self.prep_sub,
-            self.state, self.config, self.generator)
+            self.state, self.config, self.generator, proposal=self.proposal)
         return self._unscale(stats)
 
     def step_scenarios(self, values=None, deltas=None, weights=None) -> Dict:
@@ -188,13 +194,16 @@ class SDSolver:
             n = min(chunk, n_iters - done)
             self.state, packed, keys = sd_run(
                 self.arrays, self.scenario_model, self.espec, self.prep_sub,
-                self.state, self.config, n, self.generator)
+                self.state, self.config, n, self.generator,
+                proposal=self.proposal)
             acc = self._unscale({k: packed[:, j] for j, k in
                                  enumerate(keys)})
             done += n
             if not np.all(np.isfinite(acc["cand_est"])):
+                from sqlp_tpu_torch.utils.checkpoint import save_state
                 dump = os.path.abspath("error_state.npz")
-                np.savez(dump, **state_to_numpy(self.state))
+                save_state(dump, self.state, self.generator,
+                           instance=self.inst.name)
                 bad = int(acc["it"][np.argmax(~np.isfinite(acc["cand_est"]))])
                 raise FloatingPointError(
                     f"non-finite candidate estimate at iteration {bad}; "

@@ -6,8 +6,9 @@ Port of record: ``sqlp_tpu/sd/state.py`` (``EpigraphSpec`` :31-42,
 are pre-allocated with live counts, cut pools recycle slots, exactly as in
 the reference package, so a state reads and writes the ``.npz`` schema of
 ``sqlp_tpu/utils/checkpoint.py:25-42`` (:func:`state_to_numpy`,
-:func:`state_from_numpy`). The JAX PRNG ``key`` field has no counterpart:
-the solver's ``torch.Generator`` stands in its place.
+:func:`state_from_numpy`; files are written and read by
+``sqlp_tpu_torch/utils/checkpoint.py``). The JAX PRNG ``key`` field has
+no counterpart: the solver's ``torch.Generator`` stands in its place.
 
 Replications stack R states on a leading axis of every field
 (:func:`stack_states`, the counterpart of ``jax.tree.map(jnp.stack)`` at

@@ -276,11 +276,13 @@ def test_cli_evaluate(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2"],
-    ["--proposal-sto", "x"]])
+    ["--mesh", "2", "--proposal-sto", "x"]])
 def test_cli_refuses_polish_and_target_gap(flags, capsys):
-    """The flags the port still refuses, each with the ROADMAP item that
-    brings it. The polish route and --target-gap, which this test
-    refused before, run now (tests/test_torch_polish_gap.py)."""
+    """The flag the port still refuses, with the ROADMAP item that brings
+    it, alone and beside --proposal-sto. The polish route and
+    --target-gap, which this test refused before, run now
+    (tests/test_torch_polish_gap.py); so does --proposal-sto
+    (tests/test_torch_run_management.py)."""
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
     err = capsys.readouterr().err
     assert "is not ported to sqlp_tpu_torch yet (ROADMAP A1" in err

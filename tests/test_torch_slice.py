@@ -181,15 +181,15 @@ def test_cli_solve_lands():
 @pytest.mark.parametrize("flags", [
     ["--mesh", "8", "--certify-method", "polish"],
     ["--mesh", "4", "--eval-every", "10", "--sharpen-every", "20"],
-    ["--mesh", "8"], ["--proposal-sto", "other.sto"],
-    ["--proposal-sto", "other.sto", "--eval-every", "5", "--stop-gap",
-     "0.01"],
+    ["--mesh", "8"], ["--mesh", "8", "--proposal-sto", "other.sto"],
+    ["--mesh", "2", "--proposal-sto", "other.sto", "--eval-every", "5",
+     "--stop-gap", "0.01", "--log", "x.jsonl", "--checkpoint", "x.npz"],
     ["--mesh", "2", "--stop-stall-window", "3"]])
 def test_cli_refuses_unported_flags(flags, capsys):
-    """Flags whose features are not ported (--mesh, --proposal-sto) exit 2
-    before any work, with a message naming the ROADMAP item, also beside
-    the flags that are ported (the polish route, the periodic loop's
-    flags)."""
+    """The flag whose feature is not ported (--mesh) exits 2 before any
+    work, with a message naming the ROADMAP item, also beside the flags
+    that are ported (the polish route, the periodic loop's flags,
+    importance sampling and run management)."""
     from sqlp_tpu_torch.cli import main
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
     assert "ROADMAP" in capsys.readouterr().err
