@@ -6,6 +6,8 @@
     python3 chip_smoke.py --phases device,certify,cli_cert
     python3 chip_smoke.py --phases device,certify,cert_polish,cli_gap
     python3 chip_smoke.py --phases device,cli_run
+    python3 chip_smoke.py --phases device,mesh
+    python3 chip_smoke.py --phases device,mesh_nccl     # on 4 cards
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
@@ -58,8 +60,13 @@ management and importance sampling through the CLI: a resumed ssn run
 with a JSONL log), ssn drawn from a defensive mixture proposal under
 `--profile` (the trace must name B1's cluster and B3's kernels), lands
 from the uniform proposal under the reference's gates; meanwhile it holds
-the native SMPS parsers to the Python ones on ssn and storm. Any failed
-phase exits non-zero. The
+the native SMPS parsers to the Python ones on ssn and storm. `mesh`, before
+the CLI phases, runs multi-device SD with the ranks sharing the card over
+Gloo: lands in float64 on a 2x2 mesh of 4 rank processes against one
+rank at 1e-8, and ssn's flagship CLI `--mesh 2 --shard-duals` at S 4096,
+D 2048 through `--coordinator`, each rank reporting its own launches;
+`mesh_nccl` (not run by default: 4 cards) gives each rank a card of its
+own, so the ranks join over NCCL. Any failed phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
@@ -266,7 +273,9 @@ _PDHG_PHASES = {"b1": "halpern", "b2": "average"}
 _PDHG_ARGS = {"halpern": 13, "average": 10}
 # the paths' rungs (the SD panels of 2 and 16 rows, the MC ladder 4096,
 # 1024, 512, 256), storm, lands and per-element q (a ragged tile too)
-_PDHG_CASES = (("lands", 8, False), ("ssn", 2, False), ("ssn", 16, False),
+# (lands, 2) is the mesh phase's SD panel, on the row-block kernel in f64
+_PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
+               ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 256, False), ("ssn", 512, False),
                ("ssn", 1024, False), ("ssn", 4096, False),
                ("storm", 2, False), ("storm", 1024, False),
@@ -1066,6 +1075,250 @@ def phase_small(results):
         _record_launches(results, counts, (key,), f"small {scheme}")
 
 
+# the mesh phase: lands in float64 on a 2x2 mesh against one rank, the
+# capacities and tolerances of tests/test_parallel.py:47-52, on the scenario
+# values of tests/test_torch_mesh.py; then ssn at the flagship CLI settings
+# on a 1-D mesh of 2 ranks with the pool sharded, at the flagship
+# capacities
+MESH_LANDS_STEPS = 12
+MESH_SSN_ITERS = 100
+MESH_ATOL = 1e-8
+
+
+def _mesh_lands_solver(mesh_shape=None):
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.config import PDHGConfig, QPConfig, SDConfig
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd.driver import SDSolver
+
+    cfg = SDConfig(dtype="float64", max_scenarios=256, max_dual_vertices=64,
+                   max_cuts=16, pdhg=PDHGConfig(tol=1e-8, max_iters=10_000),
+                   qp=QPConfig(tol=1e-9, max_iters=4_000))
+    inst = load_instance("lands", dtype=torch.float64, device="cuda")
+    return SDSolver(inst, cfg, x0=np.full(4, 3.0), seed=3,
+                    mesh_shape=mesh_shape)
+
+
+def _mesh_lands_steps(solver):
+    """MESH_LANDS_STEPS steps on numpy-drawn lands scenario values (the
+    seed and draw of tests/test_torch_slice.py's lands stream); returns
+    the candidates [steps, n1]."""
+    import numpy as np
+    support = solver.inst.scenario_model.values[0].cpu().numpy()
+    values = np.random.default_rng(11).choice(support,
+                                              size=MESH_LANDS_STEPS)
+    xs = []
+    for v in values:
+        solver.step_scenarios(values=np.full((1, 1, 1), v))
+        xs.append(solver.x_candidate)
+    return np.stack(xs)
+
+
+def mesh_lands_rank(rank: int, world: int, port: int, out: str,
+                    device: str = "cuda:0") -> None:
+    """One rank of the mesh phases' lands run (started by phase_mesh and
+    phase_mesh_nccl): joins the group on ``device`` (Gloo when the ranks
+    share cuda:0, NCCL when each has a card), steps the 2x2 mesh, checks
+    that the replicated fields agree across ranks, prints its backend and
+    launches on standard error; rank 0 saves the candidates to
+    ``out``."""
+    import numpy as np
+    from sqlp_tpu_torch.parallel import distributed
+    from sqlp_tpu_torch.parallel.mesh import check_replicated
+    from sqlp_tpu_torch.utils.torchsetup import configure_torch
+
+    configure_torch()
+    distributed.init_distributed(f"127.0.0.1:{port}", world, rank, device,
+                                 timeout_s=300)
+    print(f"chip_smoke backend: {distributed.backend()} "
+          f"({distributed.layout_summary()})", file=sys.stderr)
+    try:
+        solver = _mesh_lands_solver(mesh_shape=(2, 2))
+        _reset_counts()
+        xs = _mesh_lands_steps(solver)
+        counts = _counts()
+        n = check_replicated(solver.state, solver.mesh)
+        print(f"chip_smoke replicated: {n} fields bitwise equal",
+              file=sys.stderr)
+        print("chip_smoke launches: " + json.dumps(counts), file=sys.stderr)
+        if rank == 0:
+            np.save(out, xs)
+    finally:
+        distributed.shutdown()
+
+
+def _wait_ranks(tag, procs, limit_s):
+    """Wait for rank processes {name: (proc, out, err, t0)}; returns {name:
+    (stdout, stderr, seconds)} or raises when one failed or ran past
+    limit_s (all are killed then)."""
+    got, failed = {}, []
+    for name, (proc, out, err, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, limit_s - (time.perf_counter()
+                                                       - t0)))
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other[0].kill()
+            rc = "timeout"
+        got[name] = (_read(out), _read(err), time.perf_counter() - t0)
+        if rc != 0:
+            failed.append(name)
+            log(f"[mesh] {tag} {name}: rc={rc} {got[name][1][-2000:]}")
+    if failed:
+        raise AssertionError(f"[mesh] {tag}: ranks failed: {failed}")
+    return got
+
+
+def _rank_counts(tag, name, err):
+    m = re.search(r"chip_smoke launches: (\{.*\})", err)
+    if m is None:
+        raise AssertionError(f"[mesh] {tag} {name}: no launch counts")
+    return json.loads(m.group(1))
+
+
+def _mesh_lands(tag, device_of, results=None):
+    """The 2x2 lands run: 4 rank processes (rank r on ``device_of(r)``)
+    against a single-rank run here, held within MESH_ATOL at every step;
+    returns the ranks' standard errors."""
+    import tempfile
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    port = _free_port()
+    code = ("import sys, chip_smoke\n"
+            "chip_smoke.mesh_lands_rank(*map(int, sys.argv[1:4]), "
+            "*sys.argv[4:6])\n")
+    out_x = os.path.join(tmp, "x.npy")
+    procs = {}
+    for r in range(4):
+        proc, o, e = _cli([str(r), "4", str(port), out_x, device_of(r)],
+                          code=code)
+        procs[f"rank{r}"] = (proc, o, e, time.perf_counter())
+    _reset_counts()
+    single = _mesh_lands_steps(_mesh_lands_solver())
+    counts = _counts()
+    got = _wait_ranks(f"{tag} lands 2x2", procs, 300)
+    xs = np.load(out_x)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    dx = np.abs(xs - single).max(axis=1)
+    log(f"[{tag}] lands f64 2x2, {MESH_LANDS_STEPS} steps: max |x_mesh - "
+        f"x_single| per step {np.array2string(dx, precision=2)}; rank "
+        f"seconds {', '.join(f'{v[2]:.1f}' for v in got.values())}; "
+        f"single-rank launches {json.dumps(counts)}")
+    for name, (_, err, _) in got.items():
+        c = _rank_counts("lands", name, err)
+        backend = re.search(r"chip_smoke backend: (.*)", err)
+        log(f"[{tag}] lands {name} ({backend.group(1) if backend else '?'})"
+            f" launches: {json.dumps(c)}")
+        if results is not None:
+            _record_launches(results, c, ("pdhg_halpern_round",
+                                          "admm_round"),
+                             f"mesh_lands_{name}")
+        if "chip_smoke replicated:" not in err:
+            raise AssertionError(f"[{tag}] lands {name}: no replicated "
+                                 f"check")
+    if not float(dx.max()) <= MESH_ATOL:
+        raise AssertionError(f"[{tag}] lands 2x2 mesh left the single-rank "
+                             f"run: {dx}")
+    return {k: v[1] for k, v in got.items()}
+
+
+def phase_mesh_nccl():
+    """Not default (needs 4 cards): the lands 2x2 run of phase_mesh with
+    rank r on cuda:r, so the ranks join over NCCL, against one rank; then
+    ``solve ssn --mesh 2 --mesh-duals 2`` for 20 iterations, the command
+    starting its 4 ranks itself (rank i on cuda:i): bounds finite, NCCL
+    chosen, the replicated fields bitwise equal on the 4 ranks."""
+    import torch
+    if torch.cuda.device_count() < 4:
+        raise AssertionError(f"mesh_nccl needs 4 cards, the host has "
+                             f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    errs = _mesh_lands("mesh_nccl", lambda r: f"cuda:{r}")
+    if not all("chip_smoke backend: nccl" in e for e in errs.values()):
+        raise AssertionError("[mesh_nccl] the lands ranks did not choose "
+                             "NCCL")
+    proc, o, e = _cli(["solve", "ssn", "--iters", "20", "--schedule",
+                       "adaptive", "--rho", "1e-3", "--device", "cuda",
+                       "--mesh", "2", "--mesh-duals", "2",
+                       "--eval-samples", "1000"])
+    got = _wait_ranks("ssn 2x2", {"cli": (proc, o, e, time.perf_counter())},
+                      600)
+    out, err, sec = got["cli"]
+    for line in err.splitlines():
+        if line.startswith(("mesh", "done:")):
+            log(f"[mesh_nccl] ssn: {line}")
+    m = re.search(r"lb_est=(\S+) mc_ub=(\S+) \(95% \+- (\S+),", out)
+    if m is None or not all(math.isfinite(float(v)) for v in m.groups()):
+        raise AssertionError(f"[mesh_nccl] ssn bounds: {out}")
+    log(f"[mesh_nccl] ssn 2x2 over 4 cards, 20 iterations: lb_est="
+        f"{m.group(1)} mc_ub={m.group(2)} +- {m.group(3)} in {sec:.1f}s")
+    if "over nccl: 4 ranks, each on a GPU of its own" not in err or \
+            "replicated state fields bitwise equal on 4 ranks" not in err:
+        raise AssertionError("[mesh_nccl] ssn: NCCL not chosen or the "
+                             "replicated check missing")
+    log(f"[mesh_nccl] {time.perf_counter() - t0:.1f}s")
+
+
+def phase_mesh(results):
+    """Multi-device SD on one card: every rank a process with its own CUDA
+    context on cuda:0, the ranks joined over Gloo (NCCL refuses two ranks
+    on one GPU), each launching B1 and B3 on its own part of the work.
+    (a) lands in float64 on a 2x2 (duals x scenarios) mesh, 4 ranks, for
+        MESH_LANDS_STEPS steps on supplied scenario values, held at every
+        step within MESH_ATOL of a single-rank run of the same values here;
+    (b) ssn at the flagship CLI settings, --mesh 2 --shard-duals at the
+        flagship capacities S 4096, D 2048, MESH_SSN_ITERS iterations and
+        the 1000-sample MC bound, 2 ranks through --coordinator: bounds
+        finite, the replicated fields bitwise equal on both ranks (the
+        CLI's own check), B1's cluster and tile kernels and B3 launched on
+        each rank.
+    These times are not a multi-GPU scaling figure: the ranks share one
+    card and the host's cores."""
+    t0 = time.perf_counter()
+    _mesh_lands("mesh", lambda r: "cuda:0", results)
+
+    # (b) ssn, 2 ranks through --coordinator, each counting its launches
+    port = _free_port()
+    args = ["solve", "ssn", "--iters", str(MESH_SSN_ITERS), "--schedule",
+            "adaptive", "--rho", "1e-3", "--device", "cuda", "--mesh", "2",
+            "--shard-duals", "--no-auto-capacity", "--max-scenarios",
+            "4096", "--max-duals", "2048", "--eval-samples", "1000",
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    procs = {}
+    for r in range(2):
+        proc, o, e = _cli(args + ["--process-id", str(r)], counted=True)
+        procs[f"rank{r}"] = (proc, o, e, time.perf_counter())
+    got = _wait_ranks("ssn", procs, 600)
+    out, err, _ = got["rank0"]
+    m = re.search(r"lb_est=(\S+) mc_ub=(\S+) \(95% \+- (\S+),", out)
+    if m is None:
+        raise AssertionError(f"[mesh] ssn rank 0 printed no bounds: {out}")
+    lb, ub, hw = map(float, m.groups())
+    for line in err.splitlines():
+        if line.startswith(("mesh", "done:")):
+            log(f"[mesh] ssn rank0: {line}")
+    log(f"[mesh] ssn --mesh 2 --shard-duals S 4096 D 2048, "
+        f"{MESH_SSN_ITERS} iterations: lb_est={lb:.6f} mc_ub={ub:.6f} +- "
+        f"{hw:.4f}; rank seconds "
+        f"{', '.join(f'{v[2]:.1f}' for v in got.values())}")
+    if not all(math.isfinite(v) for v in (lb, ub, hw)):
+        raise AssertionError(f"[mesh] ssn bounds not finite: {lb} {ub}")
+    if "replicated state fields bitwise equal on 2 ranks" not in err:
+        raise AssertionError("[mesh] ssn: no replicated-fields check")
+    if got["rank1"][0].strip():
+        raise AssertionError(f"[mesh] ssn rank 1 printed: {got['rank1'][0]}")
+    for name, (_, err, _) in got.items():
+        c = _rank_counts("ssn", name, err)
+        log(f"[mesh] ssn {name} launches: {json.dumps(c)}")
+        _record_launches(results, c, ("pdhg_halpern_cluster",
+                                      "pdhg_halpern_tile", "admm_round"),
+                         f"mesh_ssn_{name}")
+    log(f"[mesh] lands and ssn in {time.perf_counter() - t0:.1f}s")
+
+
 # the certify phase's gates (RESULTS.md round 5 measured |lb - ef_obj| at
 # 0.01-0.05 on ssn at EF tol 1e-5)
 CERT_EF_TOL = 1e-5
@@ -1405,20 +1658,28 @@ _COUNTED = ("import json, sys, chip_smoke\n"
             "sys.exit(rc)\n")
 
 
-def _cli(args, counted=False, env=None):
+def _cli(args, counted=False, env=None, code=None):
     """Start a CLI subprocess of the port from the repo root, its output
     into temporary files (pipes could fill while another run is waited
     for); returns (process, stdout file, stderr file). ``counted`` runs
-    it through ``_COUNTED``."""
+    it through ``_COUNTED``, ``code`` runs ``python -c code args``."""
     import tempfile
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    head = ["-c", _COUNTED] if counted else ["-m", "sqlp_tpu_torch"]
+    head = ["-c", code] if code else \
+        ["-c", _COUNTED] if counted else ["-m", "sqlp_tpu_torch"]
     proc = subprocess.Popen(
         [sys.executable, *head, *args], stdout=out,
         stderr=err, text=True, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     _STARTED.append(proc)
     return proc, out, err
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def _read(f) -> str:
@@ -1672,8 +1933,9 @@ def start_cli_gap(results):
 
 # iterations of cli_run's ssn importance-sampling run, cut from 200: under
 # the profiler every eager operator is an event, 19 MB of trace an ssn
-# iteration (3.9 GB at 200)
-IS_ITERS = 100
+# iteration (3.9 GB at 200); then from 100 to 50 when the mesh phase took
+# the default script past 1100 of its 1200 s
+IS_ITERS = 50
 # the uniform proposal over lands' support (tests/test_sampling.py:278-285)
 LANDS_UNIFORM = ("STOCH         LandS\n"
                  "INDEP         DISCRETE\n"
@@ -1965,6 +2227,10 @@ def run_phase(ph, args, results, memo):
         phase_replicated(results, args.rep_iters)
     elif ph == "small":
         phase_small(results)
+    elif ph == "mesh":
+        phase_mesh(results)
+    elif ph == "mesh_nccl":
+        phase_mesh_nccl()
     elif ph == "certify":
         memo["certify"] = phase_certify(results, args.cert_iters,
                                         args.cert_eval_samples)
@@ -1991,7 +2257,7 @@ def main() -> int:
                     help="samples of the certified path's MC panels")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "certify,cert_polish,cli,cli_rep,cli_cert,cli_gap,"
+                    "certify,cert_polish,mesh,cli,cli_rep,cli_cert,cli_gap,"
                     "cli_run")
     args = ap.parse_args()
     phases = args.phases.split(",")

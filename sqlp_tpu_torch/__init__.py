@@ -9,6 +9,8 @@ PyTorch on an NVIDIA H100. Layout mirrors the reference:
              ops/cuda/ wraps the hand-written CUDA kernels (csrc/) and
              holds their plain PyTorch versions
   sd/        dual pool, cuts, master assembly, the SD step, driver
+  parallel/  ranks on torch.distributed, meshes, the sharded state's
+             layout and the step's combines
   utils/     process configuration, checkpoints, JSONL metrics, profiling
 
 This package imports torch, numpy and scipy, never jax.

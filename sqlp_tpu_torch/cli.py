@@ -36,24 +36,46 @@ optimality gap (:func:`certify_replications`); with ``--target-gap`` it
 certifies every ``--certify-every`` iterations and stops at the target
 certified gap, ending with one JSON line. ``ef`` solves a sampled
 extensive form, ``evaluate`` estimates the expected cost of a first-stage
-decision. The reference CLI's ``--mesh`` is accepted by the parser and
-refused with the ROADMAP item that will bring it. The replicated path
-refuses ``--proposal-sto`` (as the reference does) and the run-management
-flags (which the reference's replicated path ignores).
+decision. The replicated path refuses ``--proposal-sto`` and a mesh (as
+the reference does) and the run-management flags (which the reference's
+replicated path ignores).
+
+``solve --mesh N`` shards the scenario stores over N ranks, the dual pool
+too with ``--shard-duals``; ``--mesh-duals M`` makes the mesh 2-D, M x N
+(duals x scenarios). One rank is one process: without ``--coordinator``
+the command starts the M N ranks itself on this host (rank i on
+``cuda:(i % device_count)``); with ``--coordinator HOST:PORT
+--num-processes P --process-id i`` each process is one rank of P, started
+by the user on any host. The ranks share a card over Gloo, or each has its
+own over NCCL (``parallel/distributed.py``). Only rank 0 prints, logs and
+writes the checkpoint; ``--profile DIR`` writes one trace per rank into
+DIR/rank<i>. The run ends by checking that every replicated state field
+holds the same bits on every rank::
+
+    python -m sqlp_tpu_torch solve ssn --mesh 2 --shard-duals
+    python -m sqlp_tpu_torch solve lands --mesh 2 --mesh-duals 2 \
+        --device cpu
+    python -m sqlp_tpu_torch solve ssn --mesh 2 --coordinator host0:29500 \
+        --num-processes 2 --process-id 0      # and --process-id 1
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
+import socket
 import sys
 import time
 
 import numpy as np
 
-# flag -> (the values the port takes, ROADMAP item that brings the rest)
+# flag -> (the values the port takes, why it takes no other)
 _REFUSED = {
-    "mesh": ((0,), "A14 (multi-device)"),
+    "cpu_devices_per_process": (
+        (None,), "torch has no virtual devices: the port runs one rank "
+        "per process (--mesh N starts N of them, --coordinator joins one)"),
 }
 # single-run flags the replicated path does not take
 _SINGLE_RUN = ("log", "checkpoint", "checkpoint_every", "resume", "profile")
@@ -82,11 +104,11 @@ def _device(args):
     flags first, then a CUDA device the host does not have."""
     import torch
 
-    for flag, (taken, item) in _REFUSED.items():
+    for flag, (taken, why) in _REFUSED.items():
         value = getattr(args, flag, taken[0])
         if value not in taken:
             print(f"error: --{flag.replace('_', '-')} {value} is not ported "
-                  f"to sqlp_tpu_torch yet (ROADMAP {item})", file=sys.stderr)
+                  f"to sqlp_tpu_torch: {why}", file=sys.stderr)
             return None
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -96,20 +118,97 @@ def _device(args):
     return device
 
 
-def cmd_solve(args) -> int:
+def _mesh_ranks(args) -> int:
+    """The ranks the mesh flags ask for (<= 1: no mesh)."""
+    if not args.mesh:
+        return 0
+    return args.mesh * (args.mesh_duals or 1)
+
+
+def _mesh_error(args):
+    """Why the mesh flags cannot run as given, or None."""
+    n = _mesh_ranks(args)
+    if args.shard_duals and not args.mesh:
+        return "--shard-duals needs --mesh N (it shards the dual pool " \
+               "over the mesh)"
+    if args.mesh_duals and not args.mesh:
+        return "--mesh-duals needs --mesh N (the mesh is --mesh-duals x " \
+               "--mesh)"
+    if args.coordinator and n <= 1:
+        return "--coordinator needs a mesh of more than one rank (--mesh N)"
+    if args.coordinator and args.num_processes != n:
+        return f"--num-processes {args.num_processes} must equal the " \
+               f"mesh's {n} ranks (one rank per process)"
+    if args.coordinator and not 0 <= args.process_id < args.num_processes:
+        return f"--process-id {args.process_id} outside [0, " \
+               f"{args.num_processes})"
+    if n > 1 and getattr(args, "sharpen_every", 0):
+        return "--sharpen-every runs on a single device: host dual " \
+               "sharpening does not run on a mesh"
+    return None
+
+
+def _rank_device(device, rank: int):
+    """Rank ``rank``'s device: a CUDA run without an index puts rank i on
+    cuda:(i % device_count)."""
     import torch
 
-    from sqlp_tpu_torch.config import autoscale_capacities
-    from sqlp_tpu_torch.models.crash import crash_x0
-    from sqlp_tpu_torch.models.instance import load_instance
-    from sqlp_tpu_torch.sd.driver import SDSolver
-    from sqlp_tpu_torch.sd.state import default_epigraph_spec
-    from sqlp_tpu_torch.sd.stopping import GapRule, LowerBoundStabilization
-    from sqlp_tpu_torch.utils.checkpoint import load_state, save_state
-    from sqlp_tpu_torch.utils.metrics import MetricsLogger
-    from sqlp_tpu_torch.utils.profiling import trace
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return device
 
-    if args.replications > 1 and (args.mesh or args.proposal_sto):
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, args, n: int, port: int) -> None:
+    """One local rank of ``solve --mesh`` without ``--coordinator``."""
+    from sqlp_tpu_torch.utils.torchsetup import configure_torch
+
+    args = copy.copy(args)
+    args.coordinator = f"127.0.0.1:{port}"
+    args.num_processes, args.process_id = n, rank
+    configure_torch()
+    rc = args.fn(args)
+    if rc:
+        sys.exit(rc)
+
+
+def _spawn_ranks(args, n: int) -> int:
+    """Start the mesh's n ranks on this host, one process each, and wait
+    for them; a rank that fails fails the command."""
+    import torch.multiprocessing as mp
+
+    try:
+        mp.start_processes(_rank_main, args=(args, n, _free_port()),
+                           nprocs=n, join=True, start_method="spawn")
+    except mp.ProcessExitedException as e:
+        print(f"error: {e}", file=sys.stderr)
+        return e.exit_code or 1
+    except mp.ProcessRaisedException as e:
+        print(f"error: a rank failed:\n{e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _solve_only(args) -> bool:
+    """False after an error message when a mesh flag is given to a
+    command other than ``solve`` (the reference ignores them there)."""
+    given = [f"--{f.replace('_', '-')}" for f in
+             ("mesh", "mesh_duals", "shard_duals", "coordinator")
+             if getattr(args, f)]
+    if given:
+        print(f"error: {'/'.join(given)} apply to solve only; "
+              f"{args.cmd} runs on one device", file=sys.stderr)
+    return not given
+
+
+def cmd_solve(args) -> int:
+    if args.replications > 1 and (args.mesh or args.shard_duals
+                                  or args.mesh_duals or args.proposal_sto):
         # the reference's own refusal (sqlp_tpu/cli.py:75-82)
         print("error: --mesh/--shard-duals/--proposal-sto are not "
               "supported with --replications > 1 (replications batch "
@@ -130,24 +229,63 @@ def cmd_solve(args) -> int:
               "(the bound is a Student-t interval over R replications)",
               file=sys.stderr)
         return 2
+    err = _mesh_error(args)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
     device = _device(args)
     if device is None:
         return 2
+    n = _mesh_ranks(args)
+    if n <= 1:
+        return _solve(args, device)
+    if not args.coordinator:
+        return _spawn_ranks(args, n)
+    from sqlp_tpu_torch.parallel import distributed
 
+    device = _rank_device(device, args.process_id)
+    distributed.init_distributed(args.coordinator, args.num_processes,
+                                 args.process_id, device)
+    try:
+        return _solve(args, device, rank=args.process_id)
+    finally:
+        distributed.shutdown()
+
+
+def _silent(*a, **k) -> None:
+    pass
+
+
+def _solve(args, device, rank: int = 0) -> int:
+    """``solve`` on ``device``; on a mesh, this process's rank of it."""
+    import torch
+
+    from sqlp_tpu_torch.config import autoscale_capacities
+    from sqlp_tpu_torch.models.crash import crash_x0
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd.driver import SDSolver
+    from sqlp_tpu_torch.sd.state import default_epigraph_spec
+    from sqlp_tpu_torch.sd.stopping import GapRule, LowerBoundStabilization
+    from sqlp_tpu_torch.utils.checkpoint import load_state, save_state
+    from sqlp_tpu_torch.utils.metrics import MetricsLogger
+    from sqlp_tpu_torch.utils.profiling import trace
+
+    say = print if rank == 0 else _silent
     config = _build_config(args)
     if not args.no_auto_capacity:
         config = autoscale_capacities(config, args.iters,
-                                      n_epi=args.epigraphs)
+                                      n_epi=args.epigraphs,
+                                      mesh_devices=args.mesh)
     inst = load_instance(args.instance, dtype=config.jdtype, device=device)
-    print(f"{inst.name}: n1={inst.n1} m1={inst.m1} n2={inst.n2} "
-          f"m2={inst.m2} R={inst.n_rv} S={config.max_scenarios} "
-          f"D={config.max_dual_vertices} device={device}", file=sys.stderr)
+    say(f"{inst.name}: n1={inst.n1} m1={inst.m1} n2={inst.n2} "
+        f"m2={inst.m2} R={inst.n_rv} S={config.max_scenarios} "
+        f"D={config.max_dual_vertices} device={device}", file=sys.stderr)
     if args.x0 == "crash":
         x0, ef_obj, _ = crash_x0(inst, n_scenarios=args.crash_scenarios,
                                  seed=args.seed)
         x0 = x0.cpu().numpy().astype(np.float64)
-        print(f"crash x0 from {args.crash_scenarios}-scenario EF "
-              f"(obj {float(ef_obj):.4f})", file=sys.stderr)
+        say(f"crash x0 from {args.crash_scenarios}-scenario EF "
+            f"(obj {float(ef_obj):.4f})", file=sys.stderr)
     else:
         x0 = np.zeros(inst.n1)
     E = args.epigraphs
@@ -162,26 +300,36 @@ def cmd_solve(args) -> int:
         from sqlp_tpu_torch.models.instance import load_proposal
         proposal = load_proposal(inst, args.proposal_sto,
                                  dtype=config.jdtype)
-        print(f"importance sampling from proposal {args.proposal_sto}",
-              file=sys.stderr)
+        say(f"importance sampling from proposal {args.proposal_sto}",
+            file=sys.stderr)
     solver = SDSolver(inst, config, espec=espec, x0=x0, seed=args.seed,
-                      n_epi=E, proposal=proposal)
-    print(f"recourse lower bound: {solver.recourse_lb:.6g}"
-          + (" (auto)" if args.epi_lb is None
-             else f" (user: {args.epi_lb:g})"), flush=True)
+                      n_epi=E, proposal=proposal,
+                      mesh_devices=args.mesh if _mesh_ranks(args) > 1 else 0,
+                      shard_duals=args.shard_duals and _mesh_ranks(args) > 1,
+                      mesh_shape=(args.mesh_duals, args.mesh)
+                      if args.mesh_duals and _mesh_ranks(args) > 1 else None)
+    mesh = solver.mesh
+    if mesh is not None:
+        from sqlp_tpu_torch.parallel import distributed
+        from sqlp_tpu_torch.parallel.mesh import check_replicated
+        say(f"mesh {mesh} over {distributed.backend()}: "
+            f"{distributed.layout_summary()}", file=sys.stderr, flush=True)
+    say(f"recourse lower bound: {solver.recourse_lb:.6g}"
+        + (" (auto)" if args.epi_lb is None
+           else f" (user: {args.epi_lb:g})"), flush=True)
     if args.resume:
         solver.state = load_state(args.resume, template=solver.state,
-                                  generator=solver.generator)
-        print(f"resumed from {args.resume} at iter {int(solver.state.it)}",
-              file=sys.stderr)
+                                  generator=solver.generator, mesh=mesh)
+        say(f"resumed from {args.resume} at iter {int(solver.state.it)}",
+            file=sys.stderr)
 
     stab = LowerBoundStabilization(window=args.stop_stall_window,
                                    rel_tol=args.stop_stall_tol) \
         if args.stop_stall_window else None
     gap_rule = GapRule(rel_gap=args.stop_gap) if args.stop_gap else None
     if gap_rule and not args.eval_every:
-        print("--stop-gap needs --eval-every to estimate the upper bound; "
-              "ignoring", file=sys.stderr)
+        say("--stop-gap needs --eval-every to estimate the upper bound; "
+            "ignoring", file=sys.stderr)
         gap_rule = None
     # iterations run in chunks that end at the next multiple of any period
     # that is set, so every periodic action fires at the multiples of its
@@ -189,10 +337,13 @@ def cmd_solve(args) -> int:
     periods = [p for p in (args.log_every, args.eval_every,
                            args.checkpoint_every, args.sharpen_every) if p]
     base = min(periods) if periods else args.iters
-    logger = MetricsLogger(args.log)
+    logger = MetricsLogger(args.log if rank == 0 else None)
+    profile = args.profile
+    if profile and mesh is not None:
+        profile = os.path.join(profile, f"rank{rank}")
     t0 = time.time()
     done = 0
-    with trace(args.profile):
+    with trace(profile):
         while done < args.iters:
             nxt = min([(done // p + 1) * p for p in periods] + [args.iters])
             last = solver.run(nxt - done)
@@ -201,9 +352,9 @@ def cmd_solve(args) -> int:
             stopped = None
             if args.log_every and done % args.log_every == 0:
                 logger.log(last, it=it)
-                print(f"iter {it}: lb_est={last['cand_est']:.4f} "
-                      f"rho={last['rho']:.4g} duals={int(last['n_duals'])} "
-                      f"cuts={int(last['n_cuts_live'])}", file=sys.stderr)
+                say(f"iter {it}: lb_est={last['cand_est']:.4f} "
+                    f"rho={last['rho']:.4g} duals={int(last['n_duals'])} "
+                    f"cuts={int(last['n_cuts_live'])}", file=sys.stderr)
             if args.eval_every and done % args.eval_every == 0:
                 # the stop-gap test inflates ub by its sampling half-width,
                 # so a lucky draw cannot stop SD early
@@ -213,8 +364,8 @@ def cmd_solve(args) -> int:
                     sampling=args.sampling)
                 logger.log({"it": it, "mc_upper_bound": ub,
                             "mc_half_width": ub_hw})
-                print(f"iter {it}: mc_ub={ub:.4f} (+-{ub_hw:.4f})",
-                      file=sys.stderr)
+                say(f"iter {it}: mc_ub={ub:.4f} (+-{ub_hw:.4f})",
+                    file=sys.stderr)
                 if gap_rule and gap_rule.check(solver.lower_estimate, ub,
                                                ub_half_width=ub_hw):
                     stopped = f"gap <= {args.stop_gap:g} at iter {it}"
@@ -222,9 +373,9 @@ def cmd_solve(args) -> int:
                     and done < args.iters:
                 sh = solver.sharpen_duals_host(k=args.sharpen_k)
                 logger.log({"it": it, "sharpen": sh})
-                print(f"iter {it}: sharpened {sh['n_solved']} scenarios "
-                      f"(+{sh['n_new']} exact duals, max argmax slack "
-                      f"{sh['max_slack']:.3g})", file=sys.stderr)
+                say(f"iter {it}: sharpened {sh['n_solved']} scenarios "
+                    f"(+{sh['n_new']} exact duals, max argmax slack "
+                    f"{sh['max_slack']:.3g})", file=sys.stderr)
             if stab and (done % base == 0 or done == args.iters) \
                     and stab.update(float(last["inc_est"])):
                 stopped = stopped or \
@@ -232,9 +383,9 @@ def cmd_solve(args) -> int:
             if args.checkpoint and args.checkpoint_every \
                     and done % args.checkpoint_every == 0:
                 save_state(args.checkpoint, solver.state, solver.generator,
-                           instance=inst.name)
+                           mesh=mesh, instance=inst.name)
             if stopped:
-                print(f"stopping rule: {stopped}", file=sys.stderr)
+                say(f"stopping rule: {stopped}", file=sys.stderr)
                 break
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -242,7 +393,7 @@ def cmd_solve(args) -> int:
 
     if args.checkpoint:
         save_state(args.checkpoint, solver.state, solver.generator,
-                   instance=inst.name)
+                   mesh=mesh, instance=inst.name)
     ub, ub_hw, ub_n = solver.evaluate_ci(min_samples=args.eval_samples,
                                          max_samples=args.eval_samples,
                                          seed=args.seed + 1,
@@ -250,11 +401,15 @@ def cmd_solve(args) -> int:
     logger.log({"it": int(solver.state.it), "mc_upper_bound": ub,
                 "mc_half_width": ub_hw, "mc_samples": ub_n, "final": True})
     logger.close()
-    print(f"done: {done} iters in {elapsed:.1f}s "
-          f"({done / max(elapsed, 1e-9):.1f} it/s)", file=sys.stderr)
-    print(f"lb_est={solver.lower_estimate:.6f} mc_ub={ub:.6f} "
-          f"(95% +- {ub_hw:.4f}, N={ub_n})")
-    print(f"x_incumbent={np.round(solver.x_incumbent, 6).tolist()}")
+    if mesh is not None:
+        n_fields = check_replicated(solver.state, mesh)
+        say(f"mesh: {n_fields} replicated state fields bitwise equal on "
+            f"{mesh.size} ranks", file=sys.stderr)
+    say(f"done: {done} iters in {elapsed:.1f}s "
+        f"({done / max(elapsed, 1e-9):.1f} it/s)", file=sys.stderr)
+    say(f"lb_est={solver.lower_estimate:.6f} mc_ub={ub:.6f} "
+        f"(95% +- {ub_hw:.4f}, N={ub_n})")
+    say(f"x_incumbent={np.round(solver.x_incumbent, 6).tolist()}")
     return 0
 
 
@@ -398,7 +553,7 @@ def cmd_ef(args) -> int:
     from sqlp_tpu_torch.models.instance import load_instance
     from sqlp_tpu_torch.models.scenario import sample_deltas
 
-    device = _device(args)
+    device = _device(args) if _solve_only(args) else None
     if device is None:
         return 2
     config = _build_config(args)
@@ -425,7 +580,7 @@ def cmd_evaluate(args) -> int:
     from sqlp_tpu_torch.models.instance import load_instance
     from sqlp_tpu_torch.sd.driver import SDSolver
 
-    device = _device(args)
+    device = _device(args) if _solve_only(args) else None
     if device is None:
         return 2
     config = _build_config(args)
@@ -474,8 +629,26 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--cut-refresh", type=int, default=0,
                         help="rebuild every live cut against the current "
                              "pool every this many iterations (0: never)")
-        # a reference flag the port refuses for now (see _REFUSED)
-        sp.add_argument("--mesh", type=int, default=0)
+        sp.add_argument("--mesh", type=int, default=0,
+                        help="solve: shard the scenario stores over this "
+                             "many ranks, one process each (0: one "
+                             "device); without --coordinator the command "
+                             "starts them on this host")
+        sp.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="solve: join a mesh as one rank; rank 0's "
+                             "address, the same in every process, with "
+                             "--num-processes and a distinct --process-id")
+        sp.add_argument("--num-processes", type=int, default=1)
+        sp.add_argument("--process-id", type=int, default=0)
+        sp.add_argument("--shard-duals", action="store_true",
+                        help="with --mesh, also shard the dual-vertex pool")
+        sp.add_argument("--mesh-duals", type=int, default=0,
+                        help="with --mesh N, a 2-D (duals x scenarios) "
+                             "mesh of shape (this, N): the dual pool and "
+                             "the scenario stores each shard over their "
+                             "own axis (this x N ranks)")
+        # a reference flag the port refuses (see _REFUSED)
+        sp.add_argument("--cpu-devices-per-process", type=int, default=None)
 
     ps = sub.add_parser("solve", help="run SD iterations on an instance")
     ps.add_argument("instance")

@@ -113,10 +113,14 @@ def _pow2ceil(v: int) -> int:
 
 
 def autoscale_capacities(config: SDConfig, n_iters: int,
-                         n_epi: int = 1) -> SDConfig:
+                         n_epi: int = 1, mesh_devices: int = 0) -> SDConfig:
     """Shrink pool capacities to what ``n_iters`` iterations can fill
-    (``sqlp_tpu/config.py:278-304``, single device: no mesh rounding)."""
+    (``sqlp_tpu/config.py:278-304``); the scenario capacity stays a
+    multiple of ``mesh_devices``, the ranks of the mesh's scenario axis."""
     need_s = max(64, _pow2ceil(n_iters * config.scenarios_per_iter))
+    if mesh_devices and mesh_devices > 1:
+        need_s = max(need_s, _pow2ceil(mesh_devices))
+        need_s += (-need_s) % mesh_devices
     need_d = max(64, _pow2ceil(2 * n_iters * config.scenarios_per_iter
                                * max(n_epi, 1)))
     return config.replace(

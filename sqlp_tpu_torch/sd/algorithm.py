@@ -23,6 +23,14 @@ replications in lockstep on a stacked state: one PDHG solve over the
 flattened panel, one batched master QP. Importance sampling
 (``proposal=``) is a single-run feature, as in the reference's CLI: the
 replicated step takes no proposal.
+
+``sd_step(..., mesh=)`` runs the step on a rank's part of a sharded state
+(``parallel/mesh.py``): the scenario stream, the reservoir's draws, the
+subproblem panel, the crossover and the master are replicated (every rank
+draws and solves the same), a reservoir write lands on the rank that owns
+its slot, and the pool's warm start, the dual push and the cuts combine
+over the mesh's axes. With ``mesh=None`` the single-device step runs as
+it did.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from sqlp_tpu_torch.models.scenario import (cost_panel, effective_rhs_deltas,
 from sqlp_tpu_torch.ops.crossover import sharpen_duals
 from sqlp_tpu_torch.ops.pdhg import PreparedLP, solve_batch
 from sqlp_tpu_torch.ops.prox_qp import solve_qp
+from sqlp_tpu_torch.parallel.mesh import (gather_rows,
+                                          global_quantized_argmax, offset_of)
 from sqlp_tpu_torch.sd.cuts import Cut, build_sasa_cut, evaluate_multi_epigraph
 from sqlp_tpu_torch.sd.dual_pool import push_duals
 from sqlp_tpu_torch.sd.master import assemble_master, cut_dual_slice
@@ -93,7 +103,7 @@ def _quad_scalar_schedule(state: SDState, config: SDConfig):
     return new_qs, new_qs, new_normDk_1, new_init
 
 
-def _refresh_cuts(arrays, model, state: SDState) -> SDState:
+def _refresh_cuts(arrays, model, state: SDState, mesh=None) -> SDState:
     """Rebuild every live stored cut at its generating point against the
     current dual pool and scenario store, at full weight (the weight mark
     resets to the epigraph's total). A refreshed cut is an ordinary SASA
@@ -108,7 +118,7 @@ def _refresh_cuts(arrays, model, state: SDState) -> SDState:
                                      state.n_duals, state.scen_deltas[e],
                                      state.scen_weights[e],
                                      state.total_weight[e],
-                                     state.cut_x[e, k])
+                                     state.cut_x[e, k], mesh=mesh)
                 alpha[e, k] = cut.alpha
                 beta[e, k] = cut.beta
     return _dc.replace(
@@ -130,7 +140,8 @@ def _refresh_due(state: SDState, config: SDConfig) -> bool:
 def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
                     config: SDConfig, generator: torch.Generator,
                     deltas: Optional[torch.Tensor],
-                    weights: Optional[torch.Tensor], proposal=None):
+                    weights: Optional[torch.Tensor], proposal=None,
+                    mesh=None):
     """Steps 1-2a: sample / append scenarios and build the [2EB, m2]
     subproblem RHS panel plus the pool dual warm start. Returns
     (store, H, L0, Q). With ``proposal`` (a ScenarioModel over the same
@@ -179,6 +190,10 @@ def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
     j_res = torch.randint(0, S, (E, B), generator=generator, device=dev)
     scen_deltas, scen_weights = state.scen_deltas, state.scen_weights
     e_idx = torch.arange(E, device=dev)
+    if mesh is not None:
+        # this rank holds the slots [s_off, s_off + S_loc) of the store
+        S_loc = scen_deltas.shape[1]
+        s_off = offset_of(mesh.scen_axis, S_loc)
     for i in range(B):
         t = (state.n_stream + (i + 1)).to(dt)
         pre = state.n_scen + i < S
@@ -186,6 +201,9 @@ def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
         idx = torch.where(pre, torch.clamp_max(state.n_scen + i, S - 1),
                           j_res[:, i].to(state.n_scen.dtype)).long()
         write = pre | take
+        if mesh is not None:
+            write = write & (idx >= s_off) & (idx < s_off + S_loc)
+            idx = torch.clamp(idx - s_off, 0, S_loc - 1)
         old_d = scen_deltas[e_idx, idx]
         old_w = scen_weights[e_idx, idx]
         scen_deltas = scen_deltas.index_put(
@@ -212,7 +230,22 @@ def _sample_and_rhs(arrays, model, espec: EpigraphSpec, state: SDState,
         Q = torch.stack([Qc, Qc], dim=1).reshape(2 * E * B, n2)
     else:
         Q = None
-    if config.pool_dual_warm_start:
+    d_ax = None if mesh is None else mesh.dual_axis
+    if config.pool_dual_warm_start and d_ax is not None:
+        # the same start over a sharded pool: the quantum from the global
+        # column max, the winner's row from its owner
+        D_loc = state.duals.shape[0]
+        off = offset_of(d_ax, D_loc)
+        live = (off + torch.arange(D_loc, device=dev))[:, None] \
+            < state.n_duals
+        scores = torch.where(live, state.duals @ H.T,
+                             torch.full((), float("-inf"), dtype=dt,
+                                        device=dev))
+        best = global_quantized_argmax(scores, d_ax, off, eps=1e-4)
+        L0 = torch.where(state.n_duals > 0,
+                         gather_rows(state.duals, best, d_ax, off),
+                         state.sub_warm_L)
+    elif config.pool_dual_warm_start:
         # pool-argmax dual warm start, quantized like the cut pick
         D = config.max_dual_vertices
         live = torch.arange(D, device=dev)[:, None] < state.n_duals
@@ -239,7 +272,8 @@ def _sharpen_flat(arrays, H, sub_Y, Pi):
 
 
 def _finish_pre(arrays, model, espec: EpigraphSpec, state: SDState,
-                config: SDConfig, store: dict, Pi_sharp, pdhg_valid):
+                config: SDConfig, store: dict, Pi_sharp, pdhg_valid,
+                mesh=None):
     """Steps 3-7: dual-pool push, cut prune/build, incumbent selection and
     the prox schedule. Returns (state_now, master, extra): the state the
     master is assembled from, the master QP's operands, and what the
@@ -256,7 +290,8 @@ def _finish_pre(arrays, model, espec: EpigraphSpec, state: SDState,
     duals, duals_rounded, n_duals, duals_dropped, duals_score = push_duals(
         state.duals, state.duals_rounded, state.n_duals, Pi_sharp,
         state.duals_dropped, config.dual_sig_bits,
-        valid=pdhg_valid, score=state.duals_score)
+        valid=pdhg_valid, score=state.duals_score,
+        axis=None if mesh is None else mesh.dual_axis)
 
     # ---- 4. prune near-zero-dual cuts
     mu_scale = torch.amax(torch.where(state.cut_live, torch.abs(state.cut_dual),
@@ -281,7 +316,8 @@ def _finish_pre(arrays, model, espec: EpigraphSpec, state: SDState,
         for e in range(E):
             c, n = build_sasa_cut(arrays, model, duals, n_duals,
                                   scen_deltas[e], scen_weights[e],
-                                  total_weight[e], x, with_counts=True)
+                                  total_weight[e], x, with_counts=True,
+                                  mesh=mesh)
             cuts.append(c)
             counts.append(n)
         return (Cut(torch.stack([c.alpha for c in cuts]),
@@ -432,13 +468,13 @@ def _finish_post(arrays, espec: EpigraphSpec, state: SDState,
 
 def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
             config: SDConfig, store: dict, sub_obj, sub_Y, Pi, Pi_sharp,
-            pdhg_valid, xover_dry, crossover_accepted
+            pdhg_valid, xover_dry, crossover_accepted, mesh=None
             ) -> Tuple[SDState, dict]:
     """Steps 3-8: dual-pool push, cut prune/build, incumbent selection,
     schedule, master solve, candidate repair."""
     state_now, master, extra = _finish_pre(arrays, model, espec, state,
                                            config, store, Pi_sharp,
-                                           pdhg_valid)
+                                           pdhg_valid, mesh)
     z, mu, qp_stats = solve_qp(*master, config.qp, z0=state.master_z,
                                mu0=state.master_mu,
                                rho_init=state.master_rho)
@@ -450,8 +486,8 @@ def _finish(arrays, model, espec: EpigraphSpec, state: SDState,
 def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
             state: SDState, config: SDConfig, generator: torch.Generator,
             deltas: Optional[torch.Tensor] = None,
-            weights: Optional[torch.Tensor] = None, proposal=None
-            ) -> Tuple[SDState, dict]:
+            weights: Optional[torch.Tensor] = None, proposal=None,
+            mesh=None) -> Tuple[SDState, dict]:
     """One SD iteration: state -> (state', stats).
 
     ``generator`` (on the state's device) draws the scenarios and the
@@ -460,12 +496,14 @@ def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
     the per-scenario weight of ``add_scenario!``; ``proposal`` (a
     ScenarioModel over the same positions) draws the scenarios from it
     and weights each by the exact density ratio (importance sampling,
-    no host read).
+    no host read); ``mesh`` (a ``parallel.mesh.Mesh``) steps this rank's
+    part of a sharded state.
     """
     if _refresh_due(state, config):
-        state = _refresh_cuts(arrays, model, state)
+        state = _refresh_cuts(arrays, model, state, mesh)
     store, H, L0, Q = _sample_and_rhs(arrays, model, espec, state, config,
-                                      generator, deltas, weights, proposal)
+                                      generator, deltas, weights, proposal,
+                                      mesh)
 
     sub_obj, sub_Y, Pi, sub_stats = solve_batch(
         prep_sub, H, config.pdhg, Y0=state.sub_warm_Y, L0=L0, Q=Q)
@@ -492,7 +530,8 @@ def sd_step(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
 
     new_state, stats = _finish(arrays, model, espec, state, config, store,
                                sub_obj, sub_Y, Pi, Pi_sharp,
-                               sub_stats["pdhg_valid"], xover_dry, n_acc)
+                               sub_stats["pdhg_valid"], xover_dry, n_acc,
+                               mesh)
     stats.update(sub_stats)
     return new_state, stats
 
@@ -608,9 +647,10 @@ def _pack(rows: List[torch.Tensor]) -> np.ndarray:
 
 def sd_run(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
            state: SDState, config: SDConfig, n_steps: int,
-           generator: torch.Generator, proposal=None
+           generator: torch.Generator, proposal=None, mesh=None
            ) -> Tuple[SDState, np.ndarray, Tuple[str, ...]]:
-    """Run n_steps SD iterations (drawing from ``proposal`` when given).
+    """Run n_steps SD iterations (drawing from ``proposal`` when given;
+    on this rank's part of a sharded state with ``mesh``).
     Returns (state, packed, keys): packed is one [n_steps, n_keys] float32
     host array of the per-iteration scalar stats, column j named keys[j],
     read back once at the end."""
@@ -618,7 +658,8 @@ def sd_run(arrays, model, espec: EpigraphSpec, prep_sub: PreparedLP,
     keys: Tuple[str, ...] = ()
     for _ in range(n_steps):
         state, stats = sd_step(arrays, model, espec, prep_sub, state,
-                               config, generator, proposal=proposal)
+                               config, generator, proposal=proposal,
+                               mesh=mesh)
         if not keys:
             keys = scalar_stat_keys(stats)
         rows.append(torch.stack([

@@ -8,6 +8,19 @@ The score panel is one [D, R] x [R, S] matmul plus a base mat-vec; the
 pick is the tiling-invariant quantized argmax, kept because matmul tiling
 on the card flips near-ties just as it did between TPU meshes.
 ``torch.argmax`` returns the first maximum, like ``jnp.argmax``.
+
+``build_sasa_cut(..., mesh=)`` builds the same cut from a sharded state
+(``parallel/mesh.py``): the sums over scenarios are partial sums over the
+rank's scenario block added over the scenario axis, the argmax over a
+sharded pool is ``global_quantized_argmax`` over the dual axis, and the
+winners' rows come from their owners (``gather_rows``). On a 1-D mesh
+with ``shard_duals`` the pool and the scenarios shard over the same axis,
+so no rank holds both operands of a [D_i, S_j] score block with i != j and
+one operand has to move: the scenario block does. Each rank all-gathers
+the axis's scenario deltas [S_local, R] and weights [S_local], S (R + 1)
+elements on every rank (1.4 MB at ssn's S = 4096, R = 86 in float32),
+rather than the pool's rows [D_local, m2] (m2 = 175 on ssn); the step's
+scenario sums then run over the whole store on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +30,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from sqlp_tpu_torch.models.scenario import effective_rhs_deltas
+from sqlp_tpu_torch.parallel.mesh import (gather, gather_rows,
+                                          global_quantized_argmax, offset_of,
+                                          psum)
 
 
 class Cut(NamedTuple):
@@ -56,7 +72,7 @@ def argmax_duals(duals: torch.Tensor, n_duals: torch.Tensor,
 def build_sasa_cut(arrays, model, duals: torch.Tensor,
                    n_duals: torch.Tensor, scen_deltas: torch.Tensor,
                    scen_weights: torch.Tensor, total_weight: torch.Tensor,
-                   x: torch.Tensor, with_counts: bool = False):
+                   x: torch.Tensor, with_counts: bool = False, mesh=None):
     """One SASA cut for one epigraph at x:
 
         alpha = sum_s p_s pi_s @ (r + dr_s),  beta = -sum_s p_s (T + dT_s)' pi_s
@@ -65,8 +81,13 @@ def build_sasa_cut(arrays, model, duals: torch.Tensor,
     scenario s. Random-cost instances mask dual-infeasible (vertex,
     scenario) pairs and add the universally feasible seed dual as a
     virtual pool row. With ``with_counts`` also returns the per-vertex
-    argmax win mass (the pool's eviction score signal).
+    argmax win mass (the pool's eviction score signal). With a ``mesh``
+    the stores and the pool are this rank's blocks, the counts too.
     """
+    if mesh is not None:
+        return _build_sasa_cut_mesh(arrays, model, duals, n_duals,
+                                    scen_deltas, scen_weights, x,
+                                    with_counts, mesh)
     rv_row = model.rv_row.long()
     eff = effective_rhs_deltas(model, scen_deltas, x)
     base = arrays.r - arrays.T @ x
@@ -113,6 +134,84 @@ def build_sasa_cut(arrays, model, duals: torch.Tensor,
     cut = Cut(alpha=alpha, beta=beta)
     if with_counts:
         return cut, (counts[:-1] if model.has_cost else counts)
+    return cut
+
+
+def _build_sasa_cut_mesh(arrays, model, duals, n_duals, scen_deltas,
+                         scen_weights, x, with_counts, mesh):
+    """``build_sasa_cut`` on a rank's blocks (module docstring). The
+    scenario sums are taken with the weights and normalized after the sum
+    over the scenario axis; the seed dual of a random-cost instance is the
+    virtual row D (the pool's global capacity), replicated, and counted
+    once."""
+    s_ax, d_ax = mesh.scen_axis, mesh.dual_axis
+    if d_ax is s_ax:
+        scen_deltas = gather(scen_deltas, s_ax, 0)
+        scen_weights = gather(scen_weights, s_ax, 0)
+        s_ax = None
+    dt, dev = scen_deltas.dtype, scen_deltas.device
+    rv_row = model.rv_row.long()
+    eff = effective_rhs_deltas(model, scen_deltas, x)
+    base = arrays.r - arrays.T @ x
+    D_loc = duals.shape[0]
+    d_off = offset_of(d_ax, D_loc)
+    index = d_off + torch.arange(D_loc, device=dev)
+    live = index < n_duals
+    rows = duals
+    if model.has_cost:
+        D_seed = D_loc * (1 if d_ax is None else d_ax.size)
+        seed = model.seed_dual.to(dt)
+        rows = torch.cat([duals, seed[None, :]])
+        index = torch.cat([index, torch.full((1,), D_seed, device=dev)])
+        live = torch.cat([live, torch.ones(1, dtype=torch.bool, device=dev)])
+    ninf = torch.full((), float("-inf"), dtype=dt, device=dev)
+    scores = (rows @ base)[:, None] + rows[:, rv_row] @ eff.T
+    scores = torch.where(live[:, None], scores, ninf)
+    if model.has_cost:
+        for k, j in model.cost_idx:
+            slack = rows @ arrays.W[:, j] - model.base[k]
+            tol_k = 1e-4 * (1.0 + torch.abs(model.base[k]))
+            viol = slack[:, None] > scen_deltas[:, k][None, :] + tol_k
+            scores = torch.where(viol, ninf, scores)
+    best = global_quantized_argmax(scores, d_ax, index)
+
+    w = scen_weights
+    counts_w = (index[:, None] == best[None, :]).to(dt) @ w
+    pi_at_rows = gather_rows(duals[:, rv_row], best, d_ax, d_off)
+    if model.has_cost:
+        pi_at_rows = torch.where((best == D_seed)[:, None], seed[rv_row],
+                                 pi_at_rows)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    rhs_delta = torch.where(model.rv_is_rhs[None, :], scen_deltas, zero)
+    alpha_w = torch.sum(w * torch.sum(rhs_delta * pi_at_rows, dim=1))
+    not_tr = (model.rv_is_rhs | model.rv_is_cost) if model.has_cost \
+        else model.rv_is_rhs
+    tr_w = torch.sum(torch.where(not_tr[None, :], zero,
+                                 w[:, None] * scen_deltas * pi_at_rows),
+                     dim=0)
+    n_rows = rows.shape[0]
+    # one sum over the scenario axis: the weight, the win mass, the
+    # scenario parts of alpha and of beta
+    tot = psum(torch.cat([torch.sum(w)[None], counts_w, alpha_w[None],
+                          tr_w]), s_ax)
+    wsum = torch.clamp_min(tot[0], 1e-30)
+    counts = tot[1:1 + n_rows] / wsum
+    alpha_s = tot[1 + n_rows] / wsum
+    tr = tot[2 + n_rows:] / wsum
+    # one sum over the dual axis: the pool's parts of alpha and pi_bar
+    pool = counts[:D_loc]
+    tot = psum(torch.cat([(pool @ (duals @ arrays.r))[None], pool @ duals]),
+               d_ax)
+    alpha = tot[0] + alpha_s
+    pi_bar = tot[1:]
+    if model.has_cost:
+        alpha = alpha + counts[D_loc] * (seed @ arrays.r)
+        pi_bar = pi_bar + counts[D_loc] * seed
+    beta = -(arrays.T.T @ pi_bar)
+    beta = beta.index_add(0, model.rv_col.long(), -tr)
+    cut = Cut(alpha=alpha, beta=beta)
+    if with_counts:
+        return cut, pool
     return cut
 
 

@@ -20,7 +20,14 @@ per-replication array, ``lb_per_rep`` included, keeps length R, and
 ``solve_to_certified_gap`` splits its confidence over its planned looks.
 ``SDSolver(proposal=...)`` draws the scenario stream from an
 importance-sampling proposal (``models/instance.py:load_proposal``).
-Not ported (refused by the CLI, absent here): meshes.
+``SDSolver(mesh_devices=N | mesh_shape=(nd, ns), shard_duals=...)``
+shards the scenario stores and the dual pool over the ranks of an
+initialized ``torch.distributed`` group (``parallel/mesh.py``, reference
+:163-186); every rank constructs the solver and calls every method, and
+the Monte-Carlo panels shard their rows over all ranks. Host dual
+sharpening and the decision polish (which reuses its own solves) stay
+single-device paths (ValueError with a mesh), as do the replications,
+which take no mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from sqlp_tpu_torch.models.routines import (project_first_stage,
 from sqlp_tpu_torch.models.scenario import (cost_panel, sample_deltas,
                                             values_to_deltas)
 from sqlp_tpu_torch.ops.pdhg import prepare_lp, solve_batch
+from sqlp_tpu_torch.parallel.mesh import (gather_state, make_mesh,
+                                          make_mesh_2d, place_batch,
+                                          shard_state, to_host)
 from sqlp_tpu_torch.sd.algorithm import (_scenario_rhs, sd_run,
                                          sd_run_replicated, sd_step)
 from sqlp_tpu_torch.sd.compromise import (compromise_decision,
@@ -71,11 +81,21 @@ class SDSolver:
 
     def __init__(self, inst: Instance, config: SDConfig = SDConfig(),
                  espec: Optional[EpigraphSpec] = None, x0=None,
-                 seed: int = 0, n_epi: int = 1, proposal=None):
+                 seed: int = 0, n_epi: int = 1, proposal=None,
+                 mesh_devices: int = 0, shard_duals: bool = False,
+                 mesh_shape: Optional[tuple] = None):
         """``proposal`` (a ScenarioModel over the same positions, see
         ``models.instance.load_proposal``) switches the scenario stream
         to importance sampling on the device: draws come from the
-        proposal, weights are the exact density ratios."""
+        proposal, weights are the exact density ratios.
+
+        ``mesh_devices`` > 1 lays a 1-D mesh over that many ranks (the
+        world of the initialized ``torch.distributed`` group, one rank
+        per process) and shards the scenario stores over it, the dual
+        pool too with ``shard_duals``; ``mesh_shape=(nd, ns)`` lays a 2-D
+        (duals x scenarios) mesh instead, the pool over nd ranks and the
+        stores over ns. ValueError when the capacities do not divide over
+        their axes, or for ``shard_duals`` without a mesh."""
         configure_torch()
         self.inst = inst
         self.device = inst.device
@@ -147,6 +167,26 @@ class SDSolver:
         self.generator.manual_seed(seed)
         self.host_fallback_count = 0
         self.history: List[Dict] = []
+        self.mesh = None
+        if mesh_shape is not None or mesh_devices > 1:
+            if mesh_shape is not None:
+                nd, ns = mesh_shape
+            else:
+                nd, ns = (mesh_devices if shard_duals else 1), mesh_devices
+            if config.max_scenarios % ns:
+                raise ValueError(f"max_scenarios {config.max_scenarios} "
+                                 f"must divide over the {ns} ranks of the "
+                                 f"scenario axis")
+            if config.max_dual_vertices % nd:
+                raise ValueError(f"max_dual_vertices "
+                                 f"{config.max_dual_vertices} must divide "
+                                 f"over the {nd} ranks of the dual axis")
+            self.mesh = make_mesh_2d(nd, ns) if mesh_shape is not None \
+                else make_mesh(mesh_devices, shard_duals=shard_duals)
+            self.state = shard_state(self.state, self.mesh)
+        elif shard_duals:
+            raise ValueError("shard_duals needs a mesh (mesh_devices > 1 "
+                             "or mesh_shape)")
 
     def _unscale(self, stats: Dict) -> Dict:
         if self.obj_scale == 1.0:
@@ -162,7 +202,8 @@ class SDSolver:
         unscaled."""
         self.state, stats = sd_step(
             self.arrays, self.scenario_model, self.espec, self.prep_sub,
-            self.state, self.config, self.generator, proposal=self.proposal)
+            self.state, self.config, self.generator, proposal=self.proposal,
+            mesh=self.mesh)
         return self._unscale(stats)
 
     def step_scenarios(self, values=None, deltas=None, weights=None) -> Dict:
@@ -180,7 +221,7 @@ class SDSolver:
         self.state, stats = sd_step(
             self.arrays, self.scenario_model, self.espec, self.prep_sub,
             self.state, self.config, self.generator, deltas=deltas,
-            weights=weights)
+            weights=weights, mesh=self.mesh)
         return self._unscale(stats)
 
     def run(self, n_iters: int, log_every: int = 0,
@@ -195,14 +236,14 @@ class SDSolver:
             self.state, packed, keys = sd_run(
                 self.arrays, self.scenario_model, self.espec, self.prep_sub,
                 self.state, self.config, n, self.generator,
-                proposal=self.proposal)
+                proposal=self.proposal, mesh=self.mesh)
             acc = self._unscale({k: packed[:, j] for j, k in
                                  enumerate(keys)})
             done += n
             if not np.all(np.isfinite(acc["cand_est"])):
                 from sqlp_tpu_torch.utils.checkpoint import save_state
                 dump = os.path.abspath("error_state.npz")
-                save_state(dump, self.state, self.generator,
+                save_state(dump, self.state, self.generator, mesh=self.mesh,
                            instance=self.inst.name)
                 bad = int(acc["it"][np.argmax(~np.isfinite(acc["cand_est"]))])
                 raise FloatingPointError(
@@ -246,7 +287,11 @@ class SDSolver:
         stratified panel (``sd/compromise.py:polish_decision``), each
         round's values certified by the evaluator's escalation ladder.
         ``rho`` is in user objective units. Evaluate the returned x on an
-        independent sample for an unbiased cost estimate."""
+        independent sample for an unbiased cost estimate. A single-device
+        path: ValueError on a mesh (each round reuses its own solve)."""
+        if self.mesh is not None:
+            raise ValueError("the decision polish is a single-device path: "
+                             "it does not run on a mesh")
         return polish_decision(self.arrays, self.scenario_model,
                                self.prep_sub, self.config, x0,
                                obj_scale=self.obj_scale,
@@ -258,9 +303,11 @@ class SDSolver:
                         extra_scenarios: int = 0, seed: int = 9000) -> Dict:
         """The level-bundle-polished deterministic bound on this run's SAA
         optimum (``sd/lower_bound.py:saa_polish``); ``lb_per_rep[0]`` is
-        the bound."""
+        the bound. On a mesh every rank polishes the gathered state."""
+        state = self.state if self.mesh is None \
+            else gather_state(self.state, self.mesh)
         return saa_polish(self.arrays, self.scenario_model, self.espec,
-                          self.prep_sub, [self.state], self.config,
+                          self.prep_sub, [state], self.config,
                           obj_scale=self.obj_scale, max_rounds=max_rounds,
                           gap_tol=gap_tol, extra_scenarios=extra_scenarios,
                           seed=seed)
@@ -277,7 +324,11 @@ class SDSolver:
         ``mean_slack`` / ``max_slack``: the exact optimum less the pool's
         argmax value on the re-solved scenarios (scaled objective units).
         Raises ValueError on random-cost instances, whose pools carry
-        per-scenario admissibility."""
+        per-scenario admissibility, and on a mesh (a single-device
+        path, as in the reference)."""
+        if self.mesh is not None:
+            raise ValueError("host dual sharpening is a single-device path: "
+                             "it does not run on a mesh")
         if self.inst.scenario_model.has_cost:
             raise ValueError("host dual sharpening is not defined on "
                              "random-cost instances: their pools carry "
@@ -360,11 +411,17 @@ class SDSolver:
         return {"name": best[0], "x": best[1], "table": table}
 
     def _warmstart_pool(self) -> Optional[np.ndarray]:
-        """Live dual-vertex pool [n_duals, m2] (f64, host) or None."""
+        """Live dual-vertex pool [n_duals, m2] (f64, host) or None; on a
+        mesh the pool gathered from its shards."""
         n_duals = int(self.state.n_duals)
         if n_duals <= 0:
             return None
-        return np.asarray(_host(self.state.duals[:n_duals]), np.float64)
+        if self.mesh is not None and self.mesh.dual_axis is not None:
+            duals = to_host(self.state.duals, self.mesh,
+                            self.mesh.dual_axis)
+        else:
+            duals = _host(self.state.duals)
+        return np.asarray(duals[:n_duals], np.float64)
 
     @property
     def _prep_sub64(self):
@@ -388,15 +445,28 @@ class SDSolver:
         re-solve (the f64 instance of the same kernel on the card), then
         the exact host solver. With ``obj0`` / ``valid0`` (a solve of this
         panel that already ran) only its uncertified residue walks the
-        ladder."""
+        ladder. On a mesh each rank solves its row block of the panel
+        (``place_batch``), cold as in the reference, and the values and
+        their validity are gathered; every rank then walks the ladder for
+        the whole residue."""
         dev = self.device
         dt = self.config.jdtype
         pdhg = self.config.pdhg
         Qn = None if Q is None else np.asarray(_host(Q), np.float64)
         pool = self._warmstart_pool()
         if obj0 is not None:
+            if self.mesh is not None:
+                raise ValueError("solve reuse is a single-device path: it "
+                                 "does not run on a mesh")
             vals = np.array(_host(obj0), np.float64)
             valid = _host(valid0)
+        elif self.mesh is not None:
+            B = H.shape[0]
+            obj, _, _, stats = solve_batch(
+                self.prep_sub, place_batch(H, self.mesh), pdhg,
+                Q=None if Q is None else place_batch(Q, self.mesh))
+            vals = to_host(obj, self.mesh).astype(np.float64)[:B]
+            valid = to_host(stats["pdhg_valid"], self.mesh)[:B]
         else:
             L0 = None
             if pool is not None and not self.inst.scenario_model.has_cost:

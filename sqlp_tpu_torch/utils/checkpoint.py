@@ -15,6 +15,12 @@ the other:
   loader requires. The port's loader ignores a ``key``; a file without a
   generator state (one the reference wrote) keeps the solver's seeded
   generator, with a warning.
+
+A state sharded over a mesh (``parallel/mesh.py``) is saved whole: every
+rank gathers the sharded fields and rank 0 writes the file, the layout of
+the reference's ``save_state``. ``load_state(..., mesh=)`` reads the file
+on every rank and shards it again, so a file written by one process
+resumes on a mesh, and the reverse.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sqlp_tpu_torch.parallel.mesh import gather_state, shard_state
 from sqlp_tpu_torch.sd.state import SDState, state_from_numpy, state_to_numpy
 
 _META_PREFIX = "__meta_"
@@ -44,10 +51,17 @@ def _prng_key(seed: int, state: SDState) -> np.ndarray:
 
 
 def save_state(path: str, state: SDState,
-               generator: Optional[torch.Generator] = None, **meta) -> None:
+               generator: Optional[torch.Generator] = None, mesh=None,
+               **meta) -> None:
     """Write the state (and the generator's state, and scalar metadata) to
     ``path`` as ``.npz``: to a temporary file first, then ``os.replace``d
-    into place, so a reader never sees half a file."""
+    into place, so a reader never sees half a file. With a ``mesh`` every
+    rank must call it (the sharded fields are gathered) and rank 0
+    writes."""
+    if mesh is not None:
+        state = gather_state(state, mesh)
+        if mesh.rank != 0:
+            return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = state_to_numpy(state)
     seed = 0
@@ -64,7 +78,8 @@ def save_state(path: str, state: SDState,
 
 
 def load_state(path: str, template: Optional[SDState] = None,
-               generator: Optional[torch.Generator] = None) -> SDState:
+               generator: Optional[torch.Generator] = None,
+               mesh=None) -> SDState:
     """Restore an SDState. With a ``template`` (the solver's current state)
     shapes are checked against it (ValueError: the capacities must match)
     and its dtypes and device are adopted; without one the fields load as
@@ -74,7 +89,15 @@ def load_state(path: str, template: Optional[SDState] = None,
     Files that predate a field load with the reference's defaults:
     ``n_stream`` from ``total_weight`` (unit-weight streams), ``cut_x``
     from the incumbent (single and stacked shapes), scalar fields from
-    the template with a warning; a missing array field raises."""
+    the template with a warning; a missing array field raises. With a
+    ``mesh`` (and the rank's sharded ``template``) every rank reads the
+    file and keeps its part."""
+    if mesh is not None:
+        if template is None:
+            raise ValueError("loading onto a mesh needs the rank's state "
+                             "as the template")
+        full = load_state(path, gather_state(template, mesh), generator)
+        return shard_state(full, mesh)
     with np.load(path) as z:
         fields = {k: z[k] for k in z.files if not k.startswith(_META_PREFIX)}
     gen_state = fields.pop(GENERATOR_FIELD, None)

@@ -275,14 +275,14 @@ def test_cli_evaluate(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2"],
-    ["--mesh", "2", "--proposal-sto", "x"]])
+    ["--cpu-devices-per-process", "2"],
+    ["--cpu-devices-per-process", "2", "--proposal-sto", "x"]])
 def test_cli_refuses_polish_and_target_gap(flags, capsys):
-    """The flag the port still refuses, with the ROADMAP item that brings
-    it, alone and beside --proposal-sto. The polish route and
-    --target-gap, which this test refused before, run now
-    (tests/test_torch_polish_gap.py); so does --proposal-sto
-    (tests/test_torch_run_management.py)."""
+    """The flag the port refuses, with the reason, alone and beside
+    --proposal-sto. The polish route and --target-gap, which this test
+    refused before, run now (tests/test_torch_polish_gap.py); so do
+    --proposal-sto (tests/test_torch_run_management.py) and --mesh
+    (tests/test_torch_distributed.py)."""
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
     err = capsys.readouterr().err
-    assert "is not ported to sqlp_tpu_torch yet (ROADMAP A1" in err
+    assert "is not ported to sqlp_tpu_torch: torch has no virtual" in err

@@ -179,20 +179,27 @@ def test_cli_solve_lands():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "8", "--certify-method", "polish"],
-    ["--mesh", "4", "--eval-every", "10", "--sharpen-every", "20"],
-    ["--mesh", "8"], ["--mesh", "8", "--proposal-sto", "other.sto"],
-    ["--mesh", "2", "--proposal-sto", "other.sto", "--eval-every", "5",
-     "--stop-gap", "0.01", "--log", "x.jsonl", "--checkpoint", "x.npz"],
-    ["--mesh", "2", "--stop-stall-window", "3"]])
+    ["--cpu-devices-per-process", "8", "--certify-method", "polish"],
+    ["--cpu-devices-per-process", "4", "--eval-every", "10",
+     "--sharpen-every", "20"],
+    ["--cpu-devices-per-process", "8"],
+    ["--cpu-devices-per-process", "8", "--proposal-sto", "other.sto"],
+    ["--cpu-devices-per-process", "2", "--proposal-sto", "other.sto",
+     "--eval-every", "5", "--stop-gap", "0.01", "--log", "x.jsonl",
+     "--checkpoint", "x.npz"],
+    ["--cpu-devices-per-process", "2", "--stop-stall-window", "3"]])
 def test_cli_refuses_unported_flags(flags, capsys):
-    """The flag whose feature is not ported (--mesh) exits 2 before any
-    work, with a message naming the ROADMAP item, also beside the flags
-    that are ported (the polish route, the periodic loop's flags,
-    importance sampling and run management)."""
+    """The flag whose feature is not ported (--cpu-devices-per-process:
+    torch has no virtual devices, the port runs one rank per process)
+    exits 2 before any work, with a message that says why, also beside
+    the flags that are ported (the polish route, the periodic loop's
+    flags, importance sampling and run management). --mesh, which this
+    test refused until the mesh was ported, runs now
+    (tests/test_torch_distributed.py)."""
     from sqlp_tpu_torch.cli import main
     assert main(["solve", "lands", "--device", "cpu", *flags]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "is not ported to sqlp_tpu_torch: torch has no virtual " \
+        "devices" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [[], ["--replications", "1"]])
