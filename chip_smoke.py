@@ -21,12 +21,12 @@ replicated path (8 lockstep SD replications on ssn under the
 restart-to-average PDHG scheme, the compromise decision, its stratified
 Monte-Carlo bound), and the small path (lands, whose K fits L1 and stays
 on the row-block kernels: a single SD run and 3 replications under the
-average scheme). The main path also holds the tile kernel's float32
-products (FP32 FMAs in the tile kernel's order) to a gate over whole
-solves: the same 4096-row panels, at the same x over three seeds,
-through the tile kernel and through the row-block kernel; the total
-rounds within 5 % of the row-block kernel's and every mean within the
-half-width. It then
+average scheme). The main and the replicated path also hold the tile
+kernel's float32 products (FP32 FMAs in the tile kernel's order) to a
+gate over whole solves: the same 4096-row panels, at the same x over
+three seeds, through the tile kernel and through the row-block kernel;
+the total rounds within 5 % of the row-block kernel's and every mean
+within the half-width. It then
 runs the lands CLI, single and replicated, against the known optimum
 381.8533. The certified path (`certify`): 8 lockstep SD replications on
 ssn at the flagship settings, the compromise decision, then the CLI's own
@@ -272,21 +272,20 @@ def _pdhg_case(name, B, dtype, per_el_q=False, seed=0):
 _PDHG_PHASES = {"b1": "halpern", "b2": "average"}
 _PDHG_ARGS = {"halpern": 13, "average": 10}
 # the paths' rungs (the SD panels of 2 and 16 rows, the MC ladder 4096,
-# 1024, 512, 256), storm, lands and per-element q (a ragged tile too)
+# 1024, 768, 512, 256), storm, lands and per-element q (a ragged tile too)
 # (lands, 2) is the mesh phase's SD panel, on the row-block kernel in f64
 _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
                ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 256, False), ("ssn", 512, False),
-               ("ssn", 1024, False), ("ssn", 4096, False),
+               ("ssn", 768, False), ("ssn", 1024, False),
+               ("ssn", 4096, False),
                ("storm", 2, False), ("storm", 1024, False),
                ("ssn", 2, True), ("ssn", 100, True))
-# the polish routes' float32 panels, Halpern only: the ladder's 768-row
-# rung, the decision polish's 8192 rows, the level bundle's 8 x 3000
-# (round 1) and 8 x 2 x 3000 (later rounds) and the 16384 of its 8 x 2 x
-# 1024
-_POLISH_CASES = (("ssn", 768, False), ("ssn", 8192, False),
-                 ("ssn", 16384, False), ("ssn", 24000, False),
-                 ("ssn", 48000, False))
+# the polish routes' float32 panels, Halpern only: the decision polish's
+# 8192 rows, the level bundle's 8 x 3000 (round 1) and 8 x 2 x 3000 (later
+# rounds) and the 16384 of its 8 x 2 x 1024
+_POLISH_CASES = (("ssn", 8192, False), ("ssn", 16384, False),
+                 ("ssn", 24000, False), ("ssn", 48000, False))
 # a variant's entry in the kernels line: the wrapper's counter and the
 # shape its time is reported at (the path's own: the SD panel of the main
 # path is 2 rows, of the replicated path 16, the MC panel 4096; the
@@ -364,9 +363,17 @@ def phase_pdhg(results, phase):
                                reps)
                 call = time_ms(lambda: kernel(*args, n_inner, plan=plan),
                                reps)
+                waves = ""
+                if plan[0] == "tile":
+                    it = args[0].element_size()
+                    occ = pk._tile_clusters_per_wave(
+                        plan[1], *args[0].shape, it, scheme)
+                    passes = pk._tile_passes(B, plan[1], *args[0].shape, it,
+                                             scheme)
+                    waves = f"clusters_per_wave={occ} passes={passes} "
                 log(f"[{phase}] {inst} B={B} "
                     f"q={'per-el' if per_el else 'shared'} {dname} "
-                    f"{plan[0]}{plan[1:]}: "
+                    f"{plan[0]}{plan[1:]}: {waves}"
                     f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
                     f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                     f"call_ms={call:.4f} plain_ms={plain_ms:.4f} "
@@ -579,8 +586,10 @@ def _sweep_round(scheme, inst, B, dtype):
         torch.cuda.synchronize()
         ok, err = agree(out, ref, dname)
         ms = device_ms(lambda: kernel(*args, n_inner, plan=plan), reps)
+        passes = pk._tile_passes(B, plan[1], m, n, it, scheme) \
+            if plan[0] == "tile" else None
         log(f"{tag}: kernel_ms={ms:.4f} max_rel_err={err:.2e} "
-            f"max_active_clusters={occ}"
+            f"max_active_clusters={occ} passes={passes}"
             f"{' <- plan' if plan == chosen else ''} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -599,8 +608,10 @@ def phase_sweep():
 
     f32, f64 = torch.float32, torch.float64
     for scheme, inst, sizes, dtypes in (
-            ("halpern", "ssn", (2, 16, 64, 256, 1024, 4096), (f32, f64)),
-            ("average", "ssn", (16, 64, 256, 1024, 4096), (f32, f64)),
+            ("halpern", "ssn", (2, 16, 64, 256, 512, 768, 1024, 4096),
+             (f32, f64)),
+            ("average", "ssn", (16, 64, 256, 512, 768, 1024, 4096),
+             (f32, f64)),
             ("halpern", "storm", (2, 16, 256, 1024), (f32,)),
             ("halpern", "storm", (1024,), (f64,)),
             ("average", "storm", (16, 1024), (f32,))):
@@ -1035,6 +1046,9 @@ def phase_replicated(results, iters):
         raise AssertionError(f"replicated path launched a Halpern kernel "
                              f"under scheme='average', or left a rung on "
                              f"the row-block kernel: {rungs}")
+    _f32_gate("[replicated]", lambda seed: reps.evaluate_ci(
+        x=x_comp, min_samples=4096, max_samples=4096, seed=seed,
+        sampling="stratified"))
 
 
 def phase_small(results):

@@ -126,20 +126,24 @@ def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, variant,
     ("ssn", 4096, "tile"), ("ssn", 100, ("tile", 16)),
     ("ssn", 100, ("tile", 8)), ("lands", 8, ("tile", 1)),
     ("lands", 40, ("tile", 4)), ("lands", 100, ("tile", 16)),
-    ("ssn", 1, "cluster"), ("ssn", 16, "cluster"), ("ssn", 100, "cluster")])
+    ("ssn", 1, "cluster"), ("ssn", 16, "cluster"), ("ssn", 100, "cluster"),
+    ("ssn", 256, "tile"), ("ssn", 512, "tile"), ("ssn", 768, "tile"),
+    ("ssn", 1024, "tile"), ("ssn", 100, ("tile", 4)),
+    ("lands", 40, ("tile", 8)), ("lands", 40, ("tile", 16))])
 @pytest.mark.parametrize("scheme", ["halpern", "average"])
 def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, name, B,
                                                    variant, per_el_q, dtype,
                                                    tol):
     """The cluster-resident kernels of both schemes vs their plain versions
-    over one 80-step round, shared and per-row q: the tile kernel (FP32
-    FMAs in f32, FP64 matrix instructions in f64) at B = 1, one full tile,
-    a ragged last tile and the MC panel's
+    over one 80-step round, shared and per-row q, within 1e-4 in f32: the
+    tile kernel (FP32 FMAs in f32, FP64 matrix instructions in f64) at B =
+    1, one full tile, a ragged last tile, the MC ladder's rungs and its
     4096 rows (several tiles per cluster), at the plan's cluster size and
-    at forced ones, on lands too (fewer columns and constraint rows than
-    CTAs: some CTAs own nothing); the cluster kernel at B = 1, the
-    replicated SD step's 16 rows and a ragged last cluster. Two launches
-    are bitwise equal, and each counts under its own variant."""
+    at every admitted one (4, 8 and 16; ssn's f64 slices fit from 8), on
+    lands too (fewer columns and constraint rows than CTAs: some CTAs own
+    nothing); the cluster kernel at B = 1, the replicated SD step's 16
+    rows and a ragged last cluster. Two launches are bitwise equal, and
+    each counts under its own variant."""
     args = _round_args(name, B, dtype, cuda, per_el_q)
     m, n = args[0].shape
     plan = _variant(name, B, dtype, variant, scheme)
@@ -195,15 +199,31 @@ def test_forced_plans_that_do_not_fit_raise(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cluster_kernels_are_deterministic(cuda, dtype):
-    """Two launches of the cluster Halpern round (ssn, B = 2) and of the
-    cluster B3 (a storm-shaped master, eight CTAs) give bitwise-equal
-    outputs: every cross-CTA sum runs in a fixed rank order."""
+    """Two launches of the cluster Halpern round (ssn, B = 2), of the tile
+    round of both schemes at every cluster size that fits ssn (B = 700,
+    several tiles per cluster at the larger sizes) and of the cluster B3
+    (a storm-shaped master, eight CTAs) give bitwise-equal outputs: every
+    cross-CTA sum runs in a fixed rank order."""
     args = _round_args("ssn", 2, dtype, cuda, False)
     plan = _variant("ssn", 2, dtype, "plan")
     assert plan[0] == "cluster"
     a = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
     b = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    args = _round_args("ssn", 700, dtype, cuda, False)
+    m, n = args[0].shape
+    it = args[0].element_size()
+    sizes = [C for C in pdhg_kernel._CLUSTER_SIZES
+             if pdhg_kernel._tile_fits(C, m, n, it,
+                                       pdhg_kernel._TILE_ARITH[it])]
+    assert sizes == ([4, 8, 16] if it == 4 else [8, 16])
+    for scheme, n_args in (("halpern", 13), ("average", 10)):
+        kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+        for C in sizes:
+            plan = ("tile", C, pdhg_kernel._TILE_ARITH[it])
+            a = kernel(*args[:n_args], 80, plan=plan)
+            b = kernel(*args[:n_args], 80, plan=plan)
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
     ops, cfg = _master_ops(403, 122, cuda, dtype)
     a = admm_kernel.admm_round(*ops, 25, cfg.over_relax, cfg.sigma)
     b = admm_kernel.admm_round(*ops, 25, cfg.over_relax, cfg.sigma)

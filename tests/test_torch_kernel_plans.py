@@ -117,13 +117,14 @@ def test_average_plan(h100, name, itemsize, B):
 
 
 def test_pdhg_plan_on_the_mc_ladder(h100):
-    """ssn's MC ladder (4096, 1024, 256) takes the tile kernel on every
-    rung, in f32 and f64; its tails split at what one wave of clusters of
-    at most 2 rows holds: 60 rows in f32 (30 clusters of 4), 30 in f64 (15
-    of 8). A single pass of tiles takes the largest cluster (more SMs per
-    tile), several passes the smallest that fits (more tiles at once)."""
+    """ssn's MC ladder (4096, 1024, 768, 512, 256) takes the tile kernel on
+    every rung, in f32 and f64; its tails split at what one wave of
+    clusters of at most 2 rows holds: 60 rows in f32 (30 clusters of 4),
+    30 in f64 (15 of 8). A single pass of tiles takes the largest cluster
+    (more SMs per tile), several passes the smallest that fits (more tiles
+    at once)."""
     m, n = _shape("ssn")
-    for B in (4096, 1024, 256):
+    for B in (4096, 1024, 768, 512, 256):
         assert pdhg_kernel._plan(B, m, n, 4) == ("tile", 4, F32)
         assert pdhg_kernel._plan(B, m, n, 8) == ("tile", 8, "mma")
     assert pdhg_kernel._plan(60, m, n, 4) == ("cluster", 4, 2)
@@ -167,7 +168,8 @@ def _tile_smem_by_region(C, m, n, itemsize):
     return sum(regions.values()) * itemsize
 
 
-@pytest.mark.parametrize("arith", ["fma", "mma", "tf32x3"])
+@pytest.mark.parametrize("arith", ["fma", "mma", "tf32x3", "dmma",
+                                   "tf32x6"])
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("name", INSTANCES)
 def test_tile_smem_mirrors_the_kernel_layout(name, itemsize, arith):
@@ -175,7 +177,8 @@ def test_tile_smem_mirrors_the_kernel_layout(name, itemsize, arith):
     every cluster size, and _tile_fits admits exactly the sizes under
     227 KB for the dtype's own arithmetic (FP32 FMAs in f32, FP64 matrix
     instructions in f64): ssn from 4 CTAs in f32, from 8 in f64, nothing
-    for storm; and never another arithmetic, 3xTF32 included."""
+    for storm; and never another arithmetic, 3xTF32 and the other
+    candidates measured on these tiles (dmma, tf32x6) included."""
     m, n = _shape(name)
     own = arith == pdhg_kernel._TILE_ARITH[itemsize]
     fits = set()
@@ -232,7 +235,8 @@ def test_plan_refuses_an_unknown_scheme():
 
 @pytest.mark.parametrize("plan", [("tile", 1, "tf32x3"), ("tile", 1, "fma"),
                                   ("tile", 4, "mma"), ("tile", 4, "bf16x3"),
-                                  ("tile", 4, 16)])
+                                  ("tile", 4, 16), ("tile", 6, "tf32x6"),
+                                  ("tile", 4, "dmma"), ("tile", 3, "fma")])
 def test_launch_refuses_a_tile_plan_the_kernel_does_not_take(plan):
     """A forced tile plan whose footprint misses a CTA's shared memory, or
     whose arithmetic the dtype does not have, raises at the wrapper, before
@@ -251,6 +255,26 @@ def test_tile_shape_per_arithmetic(h100):
     assert pdhg_kernel._tile_shape(4096, m, n, 4, "average") == (4, F32)
     assert pdhg_kernel._tile_shape(4096, m, n, 8, "average") == (8, "mma")
     assert pdhg_kernel._tile_shape(4096, *_shape("storm"), 4) is None
+
+
+@pytest.mark.parametrize("B,passes", [(256, 1), (512, 2), (768, 2),
+                                      (1024, 3), (4096, 9)])
+def test_tile_passes_on_the_ladder(h100, B, passes):
+    """ssn's f32 MC ladder on the H100's occupancy: each rung's cluster
+    size gives the fewest passes any size that fits gives, and is the
+    largest size that gives them. On 30 clusters of 4 the 256-row rung's
+    16 tiles take one pass (on 64 SMs), 512 and 768 rows two, 1024 three
+    and 4096 nine; 15 clusters of 8 would take two passes at 256 rows."""
+    m, n = _shape("ssn")
+    sizes = [C for C in pdhg_kernel._CLUSTER_SIZES
+             if pdhg_kernel._tile_fits(C, m, n, 4, F32)]
+    C = pdhg_kernel._tile_shape(B, m, n, 4)[0]
+    assert pdhg_kernel._tile_passes(B, C, m, n, 4) == passes
+    fewest = min(pdhg_kernel._tile_passes(B, c, m, n, 4) for c in sizes)
+    assert passes == fewest
+    assert C == max(c for c in sizes
+                    if pdhg_kernel._tile_passes(B, c, m, n, 4) == fewest)
+    assert C == 4
 
 
 # (mA, nz) of the SD masters at K = 96 cuts: ssn, storm, and lands'
