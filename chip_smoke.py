@@ -2,18 +2,20 @@
 
     python3 chip_smoke.py                       # every phase, as a check
     python3 chip_smoke.py --iters 300 --rep-iters 100 \
-        --phases device,b1,b2,b3,main,replicated,small,cli,cli_rep
+        --phases device,b1,b2,b3,main,replicated,small,cli
     python3 chip_smoke.py --phases device,certify,cli_cert
     python3 chip_smoke.py --phases device,certify,cert_polish,cli_gap
     python3 chip_smoke.py --phases device,cli_run
     python3 chip_smoke.py --phases device,mesh
     python3 chip_smoke.py --phases device,mesh_nccl     # on 4 cards
+    python3 chip_smoke.py --phases device,storm --storm-iters 1500
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
-variant of both PDHG rounds, row-block, cluster and tile, wherever the
-variant takes the shape), and
-drives four paths with the kernels' launch counts reset just before and
+variant of both PDHG rounds, row-block, cluster, tile and stream,
+wherever the variant takes the shape; the float32 stream round also to
+the row-block round's bits), and
+drives five paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
 settings, then the Monte-Carlo upper bound over 4096 scenarios; run twice,
 `main` and `main2`, whose seeded bounds must agree bitwise) and the
@@ -21,52 +23,59 @@ replicated path (8 lockstep SD replications on ssn under the
 restart-to-average PDHG scheme, the compromise decision, its stratified
 Monte-Carlo bound), and the small path (lands, whose K fits L1 and stays
 on the row-block kernels: a single SD run and 3 replications under the
-average scheme). The main and the replicated path also hold the tile
+average scheme), and the storm path (`storm`: the reference bench's
+storm_time_to_gap, SD on storm in float32 from the projected x0 = 0 and
+its 8192-sample stratified MC bound, held to a band around the
+literature optimum; then 30 float64 iterations and a 4096-row panel; its
+large panels, and every float64 one, on the stream kernels). The main
+and the replicated path also hold the tile
 kernel's float32 products (FP32 FMAs in the tile kernel's order) to a
 gate over whole solves: the same 4096-row panels, at the same x over
 three seeds, through the tile kernel and through the row-block kernel;
 the total rounds within 5 % of the row-block kernel's and every mean
-within the half-width. It then
-runs the lands CLI, single and replicated, against the known optimum
-381.8533. The certified path (`certify`): 8 lockstep SD replications on
-ssn at the flagship settings, the compromise decision, then the CLI's own
-certify tail: 8 extensive forms of 3000 fresh Latin-hypercube scenarios
-each (plain torch matmuls), their f64 continuation, the dual projection,
-the host LPs, the decision picked among the compromise and the EF argmins
-on a shared panel, its bound on an independent one; gated on every EF at
-tol 1e-5, dual infeasibility at most 1e-9, each bound within 0.1 of its
-EF objective, and lb_cert below the decision's ub + hw. `cli_cert` runs
-the lands CLI's `--certify`, `ef` and `--x0 crash` at once, against the
-known optimum (the EF against the exact optimum of its own scenarios).
-`cert_polish` reuses the certify phase's 8 ssn states (no extra SD): the
-ef_polish route (4 level-bundle rounds over the certify phase's own 3000
-fresh scenarios per replication; each round's recourse panels, 8 x 1 and
-then 8 x 2 points of every scenario, in one solve, an R-batched
-projection QP, the bundle cuts merged into the EF bound model) and the
-decision polish from the certify phase's compromise decision (8192
-scenarios, 4 rounds); gated on every EF at tol 1e-5, the merged bound at
-least the polish's and the certify phase's EF bound of the same streams
-and above the latter somewhere, lb_cert below the decision's ub + hw,
-the polished decision no worse than its start and first-stage feasible,
-B1's tile kernel and batched B3 launched; then B3 is held against its
-plain version at the projection QP's and the decision master's own
-operands. `cli_gap` runs the lands CLI's `--target-gap 0.01` (stopped at
-a certified gap within its 2 looks) and the ssn CLI's periodic loop
-(`--eval-every 100 --sharpen-every 100`: one sharpening, at iteration
-100) at once, each process reporting its own kernel launches; the CLI
-phases start their runs together. `cli_run` runs, beside them, run
-management and importance sampling through the CLI: a resumed ssn run
-(100 + 100 iterations) held bit for bit to an uninterrupted one (200,
+within the half-width. It then runs the lands CLI against the known
+optimum 381.8533. The certified path (`certify`): 8 lockstep SD
+replications on ssn at the flagship settings, the compromise decision,
+then the CLI's own certify tail: 8 extensive forms of CERT_FRESH (1000)
+fresh Latin-hypercube scenarios each (plain torch matmuls), their f64
+continuation, the dual projection, the host LPs, the decision picked
+among the compromise and the EF argmins on a shared panel, its bound on
+an independent one; gated on every EF at tol 1e-5, dual infeasibility at
+most 1e-9, each bound within 0.1 of its EF objective, and lb_cert below
+the decision's ub + hw. `cli_cert` runs the lands CLI's `--replications
+3 --certify`, `ef` and `--x0 crash` at once, against the known optimum
+(the compromise's bound too; the EF against the exact optimum of its own
+scenarios). `cert_polish` reuses the certify phase's 8 ssn states (no
+extra SD): the ef_polish route (4 level-bundle rounds over the certify
+phase's own fresh scenarios, CERT_FRESH per replication; each round's
+recourse panels, 8 x 1 and then 8 x 2 points of every scenario, in one
+solve, an R-batched projection QP, the bundle cuts merged into the EF
+bound model) and the decision polish from the certify phase's compromise
+decision (8192 scenarios, 4 rounds); gated on every EF at tol 1e-5, the
+merged bound at least the polish's and the certify phase's EF bound of
+the same streams and above the latter somewhere, lb_cert below the
+decision's ub + hw, the polished decision no worse than its start and
+first-stage feasible, B1's tile kernel and batched B3 launched; then B3
+is held against its plain version at the projection QP's and the
+decision master's own operands. `cli_gap` runs the lands CLI's
+`--target-gap 0.01` (stopped at a certified gap within its 2 looks) and
+the ssn CLI's periodic loop (GAP_SSN_ITERS = 60 iterations,
+`--eval-every 30 --sharpen-every 30`: one sharpening, at iteration 30)
+at once, each process reporting its own kernel launches; the CLI phases
+start their runs together. `cli_run` runs, beside them, run management
+and importance sampling through the CLI: a resumed ssn run (30 + 30
+iterations) held bit for bit to an uninterrupted one (RESUME_ITERS = 60,
 with a JSONL log), ssn drawn from a defensive mixture proposal under
 `--profile` (the trace must name B1's cluster and B3's kernels), lands
-from the uniform proposal under the reference's gates; meanwhile it holds
-the native SMPS parsers to the Python ones on ssn and storm. `mesh`, before
-the CLI phases, runs multi-device SD with the ranks sharing the card over
-Gloo: lands in float64 on a 2x2 mesh of 4 rank processes against one
-rank at 1e-8, and ssn's flagship CLI `--mesh 2 --shard-duals` at S 4096,
-D 2048 through `--coordinator`, each rank reporting its own launches;
-`mesh_nccl` (not run by default: 4 cards) gives each rank a card of its
-own, so the ranks join over NCCL. Any failed phase exits non-zero. The
+from the uniform proposal under the reference's gates; meanwhile it
+holds the native SMPS parsers to the
+Python ones on ssn and storm. `mesh`, before the CLI phases, runs
+multi-device SD with the ranks sharing the card over Gloo: lands in
+float64 on a 2x2 mesh of 4 rank processes against one rank at 1e-8, and
+ssn's flagship CLI `--mesh 2 --shard-duals` at S 4096, D 2048 through
+`--coordinator`, each rank reporting its own launches; `mesh_nccl` (not
+run by default: 4 cards) gives each rank a card of its own, so the
+ranks join over NCCL. Any failed phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
@@ -272,31 +281,38 @@ def _pdhg_case(name, B, dtype, per_el_q=False, seed=0):
 _PDHG_PHASES = {"b1": "halpern", "b2": "average"}
 _PDHG_ARGS = {"halpern": 13, "average": 10}
 # the paths' rungs (the SD panels of 2 and 16 rows, the MC ladder 4096,
-# 1024, 768, 512, 256), storm, lands and per-element q (a ragged tile too)
-# (lands, 2) is the mesh phase's SD panel, on the row-block kernel in f64
+# 1024, 768, 512, 256), storm's (the storm path's SD panel of 2 rows and
+# its ladder 4096, 1024, 256; 16 and a ragged tile of 100), lands and
+# per-element q (a ragged tile too); (lands, 2) is the mesh phase's SD
+# panel, on the row-block kernel in f64
 _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
                ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 256, False), ("ssn", 512, False),
                ("ssn", 768, False), ("ssn", 1024, False),
                ("ssn", 4096, False),
-               ("storm", 2, False), ("storm", 1024, False),
+               ("storm", 2, False), ("storm", 16, False),
+               ("storm", 100, False), ("storm", 256, False),
+               ("storm", 1024, False), ("storm", 4096, False),
                ("ssn", 2, True), ("ssn", 100, True))
 # the polish routes' float32 panels, Halpern only: the decision polish's
-# 8192 rows, the level bundle's 8 x 3000 (round 1) and 8 x 2 x 3000 (later
-# rounds) and the 16384 of its 8 x 2 x 1024
-_POLISH_CASES = (("ssn", 8192, False), ("ssn", 16384, False),
-                 ("ssn", 24000, False), ("ssn", 48000, False))
+# 8192 rows, the level bundle's 8 x CERT_FRESH (round 1) and 8 x 2 x
+# CERT_FRESH (later rounds) and the 16384 of its 8 x 2 x 1024
+_POLISH_CASES = (("ssn", 8000, False), ("ssn", 8192, False),
+                 ("ssn", 16000, False), ("ssn", 16384, False))
 # a variant's entry in the kernels line: the wrapper's counter and the
 # shape its time is reported at (the path's own: the SD panel of the main
 # path is 2 rows, of the replicated path 16, the MC panel 4096; the
-# row-block kernels keep lands on the small path)
+# row-block kernels keep lands on the small path; the stream kernels
+# storm's 256-row float32 rung)
 _PDHG_ENTRY = {
     ("halpern", "rows"): ("pdhg_halpern_round", "lands", 8),
     ("halpern", "cluster"): ("pdhg_halpern_cluster", "ssn", 2),
     ("halpern", "tile"): ("pdhg_halpern_tile", "ssn", 4096),
+    ("halpern", "stream"): ("pdhg_halpern_stream", "storm", 256),
     ("average", "rows"): ("pdhg_average_round", "lands", 8),
     ("average", "cluster"): ("pdhg_average_cluster", "ssn", 16),
     ("average", "tile"): ("pdhg_average_tile", "ssn", 4096),
+    ("average", "stream"): ("pdhg_average_stream", "storm", 256),
 }
 
 
@@ -313,8 +329,10 @@ def _variants(args, scheme):
         f"pdhg_{scheme}_round", B, pk._row_values(m, n, scheme) * it))
     shape = pk._cluster_shape(B, m, n, it, scheme)
     tile = pk._tile_shape(B, m, n, it, scheme)
+    stream = pk._stream_shape(B, m, n, it, scheme) if tile is None else None
     for alt in (rows, ("cluster",) + shape if shape else None,
-                ("tile",) + tile if tile else None):
+                ("tile",) + tile if tile else None,
+                ("stream",) + stream if stream else None):
         if alt is not None and alt not in out:
             out.append(alt)
     return out
@@ -324,9 +342,11 @@ def phase_pdhg(results, phase):
     """One PDHG round against its plain version, f32 and f64, at the
     shapes of the SD step (B = 2; 16 replicated), the MC panel (B = 4096),
     storm, lands and per-element q (a ragged tile too), and the Halpern
-    round in f32 at the polish routes' panels (8192 to 48,000 rows): every
+    round in f32 at the polish routes' panels (8000 to 16,384 rows): every
     variant the shape admits, timed in the same call, two launches bitwise
-    equal."""
+    equal. The float32 stream variant is also held to the row-block
+    kernel's bits: where the plan admits it (rule (a) of its admission,
+    pdhg_kernel._STREAM_ITEMSIZES), a difference fails the phase."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -343,13 +363,14 @@ def phase_pdhg(results, phase):
         for dtype in dtypes:
             args = _pdhg_case(inst, B, dtype, per_el_q=per_el)[:n_args]
             dname = str(dtype).replace("torch.", "")
-            reps = 3 if B >= 1024 else 20
+            # storm's rounds take milliseconds even at a few rows
+            reps = 3 if B >= 1024 or inst == "storm" else 20
             ref = plain(*args, n_inner)
             torch.cuda.synchronize()
             plain_ms = time_ms(lambda: plain(*args, n_inner), reps)
             bound = pdhg_bound(args, n_inner, dname)
             variants = _variants(args, scheme)
-            took = {}       # ms by variant: "rows", "cluster", "tile"
+            took = {}       # ms by variant: "rows", "cluster", "tile", ...
             for plan in variants:
                 out = kernel(*args, n_inner, plan=plan)
                 torch.cuda.synchronize()
@@ -359,6 +380,19 @@ def phase_pdhg(results, phase):
                 again = kernel(*args, n_inner, plan=plan)
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, o) for a, o in zip(again, out))
+                bits = ""
+                if plan[0] == "stream" and dname == "float32":
+                    rows = kernel(*args, n_inner, plan=variants[[
+                        v[0] for v in variants].index("rows")])
+                    torch.cuda.synchronize()
+                    bitwise = all(torch.equal(a, o)
+                                  for a, o in zip(rows, out))
+                    bits = f"bitwise_vs_rows={bitwise} "
+                    if not bitwise and 4 in pk._STREAM_ITEMSIZES:
+                        raise AssertionError(
+                            f"{name} {plan} is admitted on float32 panels "
+                            f"as the row-block round's bits, but differs "
+                            f"from them on {inst} B={B}")
                 ms = device_ms(lambda: kernel(*args, n_inner, plan=plan),
                                reps)
                 call = time_ms(lambda: kernel(*args, n_inner, plan=plan),
@@ -377,7 +411,7 @@ def phase_pdhg(results, phase):
                     f"max_rel_err={err:.3e} (tol {TOL[dname]:g}) "
                     f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                     f"call_ms={call:.4f} plain_ms={plain_ms:.4f} "
-                    f"bound_ms={bound[0]:.6f} deterministic={same} "
+                    f"bound_ms={bound[0]:.6f} deterministic={same} {bits}"
                     f"{'ok' if ok and same else 'FAIL'}")
                 if not (ok and same):
                     raise AssertionError(f"{name} {plan} disagrees with its "
@@ -387,17 +421,18 @@ def phase_pdhg(results, phase):
                 worst[key] = max(worst.get(key, 0.0), abs_err)
                 took[plan[0]] = ms
                 if dname == "float32" and not per_el \
-                        and (inst, B) == (at_inst, at_B) \
-                        and plan == variants[0]:
+                        and (inst, B) == (at_inst, at_B):
                     results[key].update(
                         ms=ms, call_ms=call, plain_ms=plain_ms,
                         plan=list(plan), shape=f"{inst} B={B} f32")
                     _set_bound(results[key], bound)
-            key, at_inst, at_B = _PDHG_ENTRY[scheme, variants[0][0]]
-            if dname == "float32" and not per_el \
-                    and (inst, B) == (at_inst, at_B):
-                # the other variants' times at the shape the entry reports
-                results[key]["rowblock_ms"] = took["rows"]
+            for kind in took:
+                key, at_inst, at_B = _PDHG_ENTRY[scheme, kind]
+                if kind != "rows" and dname == "float32" \
+                        and not per_el and (inst, B) == (at_inst, at_B):
+                    # the row-block kernel's time at the shape the entry
+                    # reports
+                    results[key]["rowblock_ms"] = took["rows"]
     for key, v in worst.items():
         results[key]["max_abs_err"] = v
 
@@ -567,6 +602,8 @@ def _sweep_round(scheme, inst, B, dtype):
                   if R <= B and pk._cluster_fits(C, R, m, n, it, scheme)]
     plans += [("tile", C, pk._TILE_ARITH[it]) for C in pk._CLUSTER_SIZES
               if pk._tile_fits(C, m, n, it, pk._TILE_ARITH[it])]
+    plans += [("stream", C, pk._STREAM_TM) for C in pk._STREAM_SIZES
+              if pk._stream_fits(C, pk._STREAM_TM, m, n, it)]
     chosen = pk._plan(B, m, n, it, scheme)
     ref = getattr(pk, name + "_ref")(*args, n_inner)
     reps = 3 if B >= 1024 else 10
@@ -575,6 +612,8 @@ def _sweep_round(scheme, inst, B, dtype):
             occ = pk._clusters_per_wave(*plan[1:], m, n, it, scheme)
         elif plan[0] == "tile":
             occ = pk._tile_clusters_per_wave(plan[1], m, n, it, scheme)
+        elif plan[0] == "stream":
+            occ = pk._stream_clusters_per_wave(plan[1], m, n, it, scheme)
         else:
             occ = None
         tag = f"[sweep] {scheme} {inst} B={B} {dname} {plan}"
@@ -588,6 +627,8 @@ def _sweep_round(scheme, inst, B, dtype):
         ms = device_ms(lambda: kernel(*args, n_inner, plan=plan), reps)
         passes = pk._tile_passes(B, plan[1], m, n, it, scheme) \
             if plan[0] == "tile" else None
+        if plan[0] == "stream":     # waves of one tile per cluster
+            passes = -(-(-(-B // pk._STREAM_TM)) // occ)
         log(f"{tag}: kernel_ms={ms:.4f} max_rel_err={err:.2e} "
             f"max_active_clusters={occ} passes={passes}"
             f"{' <- plan' if plan == chosen else ''} "
@@ -601,8 +642,8 @@ def phase_sweep():
     """Every variant the kernels admit, timed at the shapes their plans
     decide between (one call, one card): both PDHG rounds' row-block
     kernels against their cluster kernels (cluster sizes, rows per
-    cluster) and tile kernels (cluster sizes), and B3 over
-    cluster sizes."""
+    cluster), tile kernels (cluster sizes) and, for storm, stream kernels
+    (cluster sizes), and B3 over cluster sizes."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -612,9 +653,8 @@ def phase_sweep():
              (f32, f64)),
             ("average", "ssn", (16, 64, 256, 512, 768, 1024, 4096),
              (f32, f64)),
-            ("halpern", "storm", (2, 16, 256, 1024), (f32,)),
-            ("halpern", "storm", (1024,), (f64,)),
-            ("average", "storm", (16, 1024), (f32,))):
+            ("halpern", "storm", (2, 16, 64, 256, 1024, 4096), (f32, f64)),
+            ("average", "storm", (2, 16, 64, 256, 1024, 4096), (f32, f64))):
         for dtype in dtypes:
             for B in sizes:
                 _sweep_round(scheme, inst, B, dtype)
@@ -694,6 +734,115 @@ def phase_main(results, iters, gate=False, path="main"):
     if gate:
         _f32_gate("[main]", lambda seed: solver.evaluate_ci(
             min_samples=4096, max_samples=4096, seed=seed))
+    return lb, ub
+
+
+# the storm phase: bench.py's storm_time_to_gap (bench.py:426-437, run by
+# bench.py:_bench_sd_gap, :227-238) with its SD iterations cut from 1500
+# to --storm-iters for the script's time limit; its MC bound must lie in
+# STORM_UB: the literature optimum is about 15,498,740 (RESULTS.md:24), an
+# MC estimate at a feasible decision cannot sit below it beyond sampling
+# error (the reference's half-width: 5,059 at 1500 iterations), and the
+# upper limit is 2 % above it
+STORM_UB = (15_480_000.0, 15_810_000.0)
+STORM_F64_ITERS = 30
+STORM_MORE_ITERS = 100      # added per look while mc_ub is above the band
+# seconds the storm phase may spend on such looks: the default script takes
+# 1116-1152 s of its 1200 s limit on the H100 (PERF.md), so about one look
+STORM_EXTRA_S = 60.0
+
+
+def _storm_solver(dtype):
+    """The reference bench's storm solver: SDConfig(pdhg=PDHGConfig(
+    tol=1e-4, max_iters=80_000)) in ``dtype``, from x0 = 0 projected onto
+    storm's first-stage rows (SDSolver's default start), seed 0."""
+    import torch
+    from sqlp_tpu_torch.config import PDHGConfig, SDConfig
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.sd.driver import SDSolver
+
+    cfg = SDConfig(dtype=dtype, pdhg=PDHGConfig(tol=1e-4, max_iters=80_000))
+    inst = load_instance("storm", dtype=cfg.jdtype,
+                         device=torch.device("cuda"))
+    return SDSolver(inst, cfg, seed=0)
+
+
+def phase_storm(results, iters):
+    """The storm path. f32: iters SD iterations, then evaluate_ci over
+    8192 stratified samples at seed 7 (two 4096-row panels through the
+    escalation ladder); while mc_ub sits above STORM_UB and the next look
+    fits in STORM_EXTRA_S seconds, STORM_MORE_ITERS more iterations and a
+    new bound (the gate fails on the last mc_ub when they are spent). f64:
+    STORM_F64_ITERS iterations and one 4096-row stratified panel. Gates: a
+    stream kernel launched on the path, every number finite, the f32 mc_ub
+    within STORM_UB."""
+    import torch
+
+    _reset_counts()
+    solver = _storm_solver("float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run(iters)
+    torch.cuda.synchronize()
+    sd_s = time.perf_counter() - t0
+    done = iters
+
+    def bound():
+        t = time.perf_counter()
+        out = solver.evaluate_ci(min_samples=8192, max_samples=8192, seed=7,
+                                 sampling="stratified")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (ub, hw, n), mc_s = bound()
+    lb = solver.lower_estimate
+    log(f"[storm] f32 {done} iters in {sd_s:.2f}s ({done / sd_s:.3f} it/s)"
+        f" lb_est={lb:.4f} mc_ub={ub:.4f} +- {hw:.4f} (N={n}, "
+        f"{mc_s:.2f}s) host_fallbacks={solver.host_fallback_count}")
+    extra_s = 0.0
+    while ub > STORM_UB[1] and extra_s + (sd_s / done) * STORM_MORE_ITERS \
+            + mc_s <= STORM_EXTRA_S:
+        t0 = time.perf_counter()
+        solver.run(STORM_MORE_ITERS)
+        torch.cuda.synchronize()
+        sd_s += time.perf_counter() - t0
+        done += STORM_MORE_ITERS
+        (ub, hw, n), mc_s = bound()
+        extra_s += time.perf_counter() - t0
+        lb = solver.lower_estimate
+        log(f"[storm] mc_ub above {STORM_UB[1]:.0f}: {STORM_MORE_ITERS} "
+            f"more iterations, {done} in {sd_s:.2f}s: lb_est={lb:.4f} "
+            f"mc_ub={ub:.4f} +- {hw:.4f} ({mc_s:.2f}s)")
+    f32_rungs = _by_rung()
+    s64 = _storm_solver("float64")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s64.run(STORM_F64_ITERS)
+    torch.cuda.synchronize()
+    sd64_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ub64, hw64, n64 = s64.evaluate_ci(min_samples=4096, max_samples=4096,
+                                      seed=7, sampling="stratified")
+    torch.cuda.synchronize()
+    mc64_s = time.perf_counter() - t0
+    lb64 = s64.lower_estimate
+    counts = _counts()
+    log(f"[storm] f64 {STORM_F64_ITERS} iters in {sd64_s:.2f}s "
+        f"({STORM_F64_ITERS / sd64_s:.3f} it/s) lb_est={lb64:.4f} "
+        f"mc_ub={ub64:.4f} +- {hw64:.4f} (N={n64}, {mc64_s:.2f}s) "
+        f"host_fallbacks={s64.host_fallback_count}")
+    log(f"[storm] launches: {json.dumps(counts)}")
+    log(f"[storm] launches by rung (f32 leg): {f32_rungs}")
+    log(f"[storm] launches by rung (both legs): {_by_rung()}")
+    numbers = (lb, ub, hw, lb64, ub64, hw64)
+    if not all(math.isfinite(v) for v in numbers):
+        raise AssertionError(f"storm: non-finite numbers {numbers}")
+    _record_launches(results, counts, ("pdhg_halpern_stream", "admm_round"),
+                     "storm")
+    if not STORM_UB[0] <= ub <= STORM_UB[1]:
+        raise AssertionError(f"storm mc_ub {ub} after {done} iterations "
+                             f"({extra_s:.1f}s of {STORM_EXTRA_S:.0f}s "
+                             f"spent on more looks) outside {STORM_UB}")
     return lb, ub
 
 
@@ -790,7 +939,8 @@ def phase_profile(path, iters):
 
 def phase_profile_ef():
     """Where the certification EF's time goes: ssn, 8 extensive forms of
-    3000 stratified scenarios each (the certify phase's shapes), in f32,
+    CERT_FRESH stratified scenarios each (the certify phase's shapes), in
+    f32,
     with the tolerance at 0 so every call runs its whole budget: a call
     of 2 restart rounds and one of 6, host clock around each (their
     difference is 4 rounds without the set-up), then 2 rounds under
@@ -805,7 +955,7 @@ def phase_profile_ef():
     tag = "[profile ef]"
     dev = torch.device("cuda")
     inst = load_instance("ssn", dtype=torch.float32, device=dev)
-    R, S = 8, 3000
+    R, S = 8, CERT_FRESH
     deltas = torch.stack([sample_deltas(stream_generator(dev, 9000, r),
                                         inst.scenario_model, S,
                                         method="stratified")
@@ -849,9 +999,11 @@ def phase_profile_ef():
 _PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
                   "pdhg_halpern_cluster": "cluster_launches",
                   "pdhg_halpern_tile": "tile_launches",
+                  "pdhg_halpern_stream": "stream_launches",
                   "pdhg_average_round": "average_launches",
                   "pdhg_average_cluster": "average_cluster_launches",
-                  "pdhg_average_tile": "average_tile_launches"}
+                  "pdhg_average_tile": "average_tile_launches",
+                  "pdhg_average_stream": "average_stream_launches"}
 
 
 def _reset_counts():
@@ -885,14 +1037,16 @@ def _by_rung():
 
 
 def _record_launches(results, counts, keys, path):
-    """The path's launches of each kernel in ``keys`` (counted from a reset
+    """The path's launches of every kernel (``counts``, read from a reset
     just before the path to a read just after it); a kernel's ``launches``
-    is the sum over the paths that ran it, ``launches_by_path`` the
-    parts."""
-    for k in keys:
-        by_path = results[k].setdefault("launches_by_path", {})
-        by_path[path] = counts[k]
-        results[k]["launches"] = sum(by_path.values())
+    is the sum over the paths that were read, 0 included, and
+    ``launches_by_path`` the parts that launched it. Fails unless each
+    kernel in ``keys`` launched on the path."""
+    for k, entry in results.items():
+        by_path = entry.setdefault("launches_by_path", {})
+        if counts[k]:
+            by_path[path] = counts[k]
+        entry["launches"] = sum(by_path.values())
     missing = [k for k in keys if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the path never launched {missing}: {counts}")
@@ -1095,7 +1249,9 @@ def phase_small(results):
 # on a 1-D mesh of 2 ranks with the pool sharded, at the flagship
 # capacities
 MESH_LANDS_STEPS = 12
-MESH_SSN_ITERS = 100
+# 100, then 50, until the storm phase and then the script's time limit
+# needed the time
+MESH_SSN_ITERS = 25
 MESH_ATOL = 1e-8
 
 
@@ -1338,14 +1494,18 @@ def phase_mesh(results):
 CERT_EF_TOL = 1e-5
 CERT_DUAL_INFEAS = 1e-9
 CERT_LB_TO_EF = 0.1
+# fresh scenarios per replication of the certify phase's EFs, which
+# cert_polish reuses: 3000 until the script outgrew its 1200 s (the EF's
+# time and the bundle's panels scale with it)
+CERT_FRESH = 1000
 
 
 def phase_certify(results, iters, eval_samples):
     """The certified path: ssn at the flagship settings (Halpern, f32),
     8 lockstep replications for ``iters`` iterations from x0 = 0, seed 0,
     the compromise decision and its stratified bound, then the CLI's own
-    certify tail (``cli.certify_replications``): 8 extensive forms of 3000
-    fresh Latin-hypercube scenarios each at tol 1e-5 with their f64
+    certify tail (``cli.certify_replications``): 8 extensive forms of
+    CERT_FRESH fresh Latin-hypercube scenarios each at tol 1e-5 with their f64
     continuation, the dual projection, the host LPs, the decision among
     the compromise and the EF argmins on a shared panel, the winner on an
     independent one."""
@@ -1377,7 +1537,7 @@ def phase_certify(results, iters, eval_samples):
         seed=20_000, sampling="stratified")
     comp_s = time.perf_counter() - t1
     out = certify_replications(reps, x_comp, ub_comp, hw_comp, method="ef",
-                               fresh_scenarios=3000,
+                               fresh_scenarios=CERT_FRESH,
                                eval_samples=eval_samples, seed=0)
     torch.cuda.synchronize()
     counts = _counts()
@@ -1444,7 +1604,7 @@ def phase_cert_polish(results, memo):
     """The rest of the certified bounds on the certify phase's 8 ssn
     replication states (no extra SD): the ef_polish route (4 level-bundle
     rounds over the certify phase's own fresh Latin-hypercube streams, its
-    3000 scenarios per replication under the same seed, their cuts merged
+    CERT_FRESH scenarios per replication under the same seed, their cuts merged
     into the EF bound model), then the decision polish from the certify
     phase's compromise decision (8192 stratified scenarios, 4 rounds, rho
     20). Gates: every EF at tol 1e-5 and dual infeasibility at most 1e-9;
@@ -1710,7 +1870,9 @@ def _start(tag, runs, counted=False, after=None):
     and returns {name: (stdout, stderr)}, or raises when a run failed."""
     import threading
     t0 = time.perf_counter()
-    env = dict(os.environ)      # as it is now, also for the chained runs
+    # as it is now, also for the chained runs; one intra-op thread a
+    # process, as a dozen CLI processes share the host's eight cores
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     procs = {k: _cli(v, counted, env) for k, v in runs.items()}
     chained = []
     for first, (name, args) in (after or {}).items():
@@ -1793,25 +1955,41 @@ def _lands_saa_optimum(n, seed):
     return obj
 
 
+# SD iterations of the lands CLI runs of `cli` and `cli_cert`: 200 until
+# the script outgrew its 1200 s (after 100 on the card, lands from the
+# uniform proposal had both bounds within 1.2 of the optimum; the gates
+# allow 6)
+LANDS_CLI_ITERS = 100
+
+
 def start_cli_cert():
     """The lands CLI on the certified path, three processes at once:
-    solve --replications 3 --certify (lb_cert within 6 of the optimum and
-    below the decision's ub + hw), ef over 100 scenarios (converged, its
+    solve --replications 3 --certify (the compromise's bound and lb_cert
+    within 6 of the optimum, lb_cert below the decision's ub + hw; the
+    replicated solve and its compromise are the run's first part), ef
+    over 100 scenarios (converged, its
     objective at the exact optimum of the same 100 scenarios: a
     100-scenario sample's own optimum lies several units from the true
     381.8533, 388.23 in the reference's `ef lands` at seed 0), and solve
     --x0 crash (lb and ub within 6)."""
     wait = _start("cli_cert", {
         "certify": ["solve", "lands", "--replications", "3", "--iters",
-                    "200", "--certify", "--eval-samples", "4096",
-                    "--device", "cuda"],
+                    str(LANDS_CLI_ITERS), "--certify", "--eval-samples",
+                    "4096", "--device", "cuda"],
         "ef": ["ef", "lands", "--scenarios", "100", "--device", "cuda"],
-        "crash": ["solve", "lands", "--x0", "crash", "--iters", "200",
-                  "--eval-samples", "4096", "--device", "cuda"]})
+        "crash": ["solve", "lands", "--x0", "crash", "--iters",
+                  str(LANDS_CLI_ITERS), "--eval-samples", "4096", "--device",
+                  "cuda"]})
 
     def finish():
         outs = wait()
         out = outs["certify"][0]
+        m = re.search(r"mc_ub_compromise=(\S+) mc_ub_average=(\S+)", out)
+        if m is None:
+            raise AssertionError("lands replicated CLI run printed no bound")
+        if not abs(float(m.group(1)) - LANDS_OPT) < 6.0:
+            raise AssertionError(f"lands compromise bound {m.group(1)} not "
+                                 f"within 6 of {LANDS_OPT}")
         m = re.search(r"lb_cert=(\S+) ", out)
         u = re.search(r"cert_gap=\S+ \(ub (\S+)\+-(\S+),", out)
         if not (m and u):
@@ -1843,7 +2021,7 @@ def start_cli():
     # 4096 MC samples keep the upper bound's sampling half-width (about 2
     # on lands) well inside the 6-unit band
     wait = _start("cli", {"solve": [
-        "solve", "lands", "--iters", "200", "--device", "cuda",
+        "solve", "lands", "--iters", str(LANDS_CLI_ITERS), "--device", "cuda",
         "--eval-samples", "4096"]})
 
     def finish():
@@ -1857,39 +2035,25 @@ def start_cli():
     return finish
 
 
-def start_cli_rep():
-    wait = _start("cli_rep", {"solve": [
-        "solve", "lands", "--replications", "3", "--iters", "200",
-        "--eval-samples", "4096", "--device", "cuda"]})
-
-    def finish():
-        m = re.search(r"mc_ub_compromise=(\S+) mc_ub_average=(\S+)",
-                      wait()["solve"][0])
-        if m is None:
-            raise AssertionError("lands replicated CLI run printed no bound")
-        ub = float(m.group(1))
-        if not abs(ub - LANDS_OPT) < 6.0:
-            raise AssertionError(f"lands compromise bound {ub} not within 6 "
-                                 f"of {LANDS_OPT}")
-    return finish
-
-
 def start_cli_gap(results):
     """The certified-gap stopping run and the periodic loop, two processes
     at once, each counting its kernel launches: the reference bench's
     lands_target_gap at its on-chip settings (bench.py:361-382; stopped
     with cert_gap <= 0.01 at one of its 2 looks), and ssn at the flagship
-    settings for 200 iterations with the Monte-Carlo bound and host dual
-    sharpening every 100 (one sharpening, at 100: none at the final
-    iteration; mc_ub at 100 and 200; lb_est below mc_ub + hw)."""
+    settings for GAP_SSN_ITERS iterations with the Monte-Carlo bound and
+    host dual sharpening every GAP_SSN_ITERS / 2 (one sharpening, halfway:
+    none at the final iteration; mc_ub halfway and at the end; lb_est
+    below mc_ub + hw)."""
+    half = GAP_SSN_ITERS // 2
     wait = _start("cli_gap", {
         "lands": ["solve", "lands", "--replications", "4", "--iters", "400",
                   "--target-gap", "0.01", "--certify-every", "200",
                   "--certify-scenarios", "1024", "--eval-samples", "8192",
                   "--device", "cuda"],
-        "ssn": ["solve", "ssn", "--iters", "200", "--schedule", "adaptive",
-                "--rho", "1e-3", "--eval-every", "100", "--sharpen-every",
-                "100", "--sharpen-k", "32", "--device", "cuda"]},
+        "ssn": ["solve", "ssn", "--iters", str(GAP_SSN_ITERS), "--schedule",
+                "adaptive", "--rho", "1e-3", "--eval-every", str(half),
+                "--sharpen-every", str(half), "--sharpen-k", "32",
+                "--device", "cuda"]},
         counted=True)
 
     def finish():
@@ -1921,12 +2085,12 @@ def start_cli_gap(results):
         if not m:
             raise AssertionError("ssn periodic run printed no bounds")
         lb, ub, hw = map(float, m.groups())
-        if [int(it) for it, _ in sharpened] != [100]:
+        if [int(it) for it, _ in sharpened] != [half]:
             raise AssertionError(f"ssn sharpened at {sharpened}, not once at "
-                                 f"iteration 100")
-        if [int(it) for it, _, _ in evals] != [100, 200]:
-            raise AssertionError(f"ssn evaluated at {evals}, not at 100 and "
-                                 f"200")
+                                 f"iteration {half}")
+        if [int(it) for it, _, _ in evals] != [half, GAP_SSN_ITERS]:
+            raise AssertionError(f"ssn evaluated at {evals}, not at {half} "
+                                 f"and {GAP_SSN_ITERS}")
         if not lb <= ub + hw:
             raise AssertionError(f"ssn lb_est {lb} above mc_ub + hw "
                                  f"{ub + hw}")
@@ -1945,11 +2109,22 @@ def start_cli_gap(results):
     return finish
 
 
+# iterations of cli_gap's periodic ssn run and of cli_run's uninterrupted
+# ssn run (the resumed one runs half, then half again), each cut from 200
+# to 100 when the storm phase took the default script near its 1200 s,
+# then to 60 when it outgrew them
+GAP_SSN_ITERS = 60
+RESUME_ITERS = 60
+# iterations of cli_run's lands importance-sampling run, 200 in the
+# reference's test (tests/test_sampling.py:270-295) and here until the
+# script outgrew its 1200 s
+IS_LANDS_ITERS = 100
 # iterations of cli_run's ssn importance-sampling run, cut from 200: under
 # the profiler every eager operator is an event, 19 MB of trace an ssn
 # iteration (3.9 GB at 200); then from 100 to 50 when the mesh phase took
-# the default script past 1100 of its 1200 s
-IS_ITERS = 50
+# the default script past 1100 of its 1200 s, and to 20 when the storm
+# phase did
+IS_ITERS = 20
 # the uniform proposal over lands' support (tests/test_sampling.py:278-285)
 LANDS_UNIFORM = ("STOCH         LandS\n"
                  "INDEP         DISCRETE\n"
@@ -2052,9 +2227,10 @@ def start_cli_run(results):
     card, five processes beside the other CLI phases, each counting its
     kernel launches:
     (a) resume on ssn at the flagship settings, capacities fixed at the
-        autoscaled values for 200 iterations: U runs 200 iterations with
-        a checkpoint and a JSONL log every 50; A runs 100 with a
-        checkpoint; B, started when A ends, resumes A's file for 100 more.
+        autoscaled values for RESUME_ITERS iterations: U runs RESUME_ITERS
+        iterations with a checkpoint and a JSONL log every quarter; A runs
+        half with a checkpoint; B, started when A ends, resumes A's file
+        for the other half.
         B's checkpoint equals U's bit for bit (every state field and the
         generator's state), and so do the final lb_est and mc_ub; U's log
         holds 4 period records and one final record;
@@ -2063,9 +2239,10 @@ def start_cli_run(results):
         stored weights positive and finite, total_weight their sum, the
         weights' effective sample size printed, and the trace names B1's
         cluster kernel and B3's kernel;
-    (c) lands from the uniform proposal, 200 iterations: stored weights
-        in {0.9, 1.2}, total_weight / 200 within 0.15 of 1, mc_ub within
-        6 of 381.8533 (tests/test_sampling.py:266-295);
+    (c) lands from the uniform proposal, IS_LANDS_ITERS iterations:
+        stored weights in {0.9, 1.2}, total_weight / IS_LANDS_ITERS within
+        0.15 of 1, mc_ub within 6 of 381.8533 (tests/test_sampling.py:
+        266-295);
     (d) here, while they run: ssn and storm through the native and the
         Python parsers compile equal instances; both parse times
         printed."""
@@ -2078,7 +2255,8 @@ def start_cli_run(results):
         return os.path.join(tmp, name)
 
     cfg = autoscale_capacities(SDConfig(max_scenarios=4096,
-                                        max_dual_vertices=2048), 200)
+                                        max_dual_vertices=2048),
+                               RESUME_ITERS)
     ssn = ["solve", "ssn", "--schedule", "adaptive", "--rho", "1e-3",
            "--seed", "0", "--device", "cuda", "--no-auto-capacity",
            "--max-scenarios", str(cfg.max_scenarios),
@@ -2086,16 +2264,19 @@ def start_cli_run(results):
     _write_defensive_proposal(at("ssn_proposal.sto"))
     with open(at("lands_proposal.sto"), "w") as fh:
         fh.write(LANDS_UNIFORM)
-    resume = ssn + ["--iters", "100", "--resume", at("A.npz"),
+    half = str(RESUME_ITERS // 2)
+    resume = ssn + ["--iters", half, "--resume", at("A.npz"),
                     "--checkpoint", at("B.npz")]
     wait = _start("cli_run", {
-        "U": ssn + ["--iters", "200", "--checkpoint", at("U.npz"), "--log",
-                    at("U.jsonl"), "--log-every", "50"],
-        "A": ssn + ["--iters", "100", "--checkpoint", at("A.npz")],
+        "U": ssn + ["--iters", str(RESUME_ITERS), "--checkpoint",
+                    at("U.npz"), "--log", at("U.jsonl"), "--log-every",
+                    str(RESUME_ITERS // 4)],
+        "A": ssn + ["--iters", half, "--checkpoint", at("A.npz")],
         "is_ssn": ssn + ["--iters", str(IS_ITERS), "--proposal-sto",
                          at("ssn_proposal.sto"), "--checkpoint",
                          at("is_ssn.npz"), "--profile", at("profile")],
-        "is_lands": ["solve", "lands", "--iters", "200", "--proposal-sto",
+        "is_lands": ["solve", "lands", "--iters", str(IS_LANDS_ITERS),
+                     "--proposal-sto",
                      at("lands_proposal.sto"), "--checkpoint",
                      at("is_lands.npz"), "--eval-samples", "4096",
                      "--device", "cuda"]}, counted=True,
@@ -2179,10 +2360,11 @@ def start_cli_run(results):
         _, ub, _ = map(float, bounds(outs["is_lands"][0]))
         f = fields("is_lands.npz")
         w = f["scen_weights"][0, :int(f["n_scen"][0])]
-        ratio = float(f["total_weight"][0]) / 200
+        ratio = float(f["total_weight"][0]) / IS_LANDS_ITERS
         log(f"[cli_run] lands importance sampling: weights "
             f"{sorted(set(np.round(w.astype(np.float64), 6).tolist()))}, "
-            f"total_weight / 200 = {ratio:.6f}, mc_ub={ub:.6f}")
+            f"total_weight / {IS_LANDS_ITERS} = {ratio:.6f}, "
+            f"mc_ub={ub:.6f}")
         if not (set(np.round(w.astype(np.float64), 6)) <= {0.9, 1.2}
                 and abs(ratio - 1.0) < 0.15
                 and abs(ub - LANDS_OPT) < 6.0):
@@ -2205,7 +2387,6 @@ def start_cli_run(results):
 # waited for together, before the next phase that uses the card in this
 # process (or at the end): the lands runs are host-bound and overlap
 CLI_PHASES = {"cli": lambda results: start_cli(),
-              "cli_rep": lambda results: start_cli_rep(),
               "cli_cert": lambda results: start_cli_cert(),
               "cli_gap": start_cli_gap,
               "cli_run": start_cli_run}
@@ -2241,6 +2422,8 @@ def run_phase(ph, args, results, memo):
         phase_replicated(results, args.rep_iters)
     elif ph == "small":
         phase_small(results)
+    elif ph == "storm":
+        phase_storm(results, args.storm_iters)
     elif ph == "mesh":
         phase_mesh(results)
     elif ph == "mesh_nccl":
@@ -2265,14 +2448,20 @@ def main() -> int:
                     help="SD iterations of the ssn main path")
     ap.add_argument("--rep-iters", type=int, default=60,
                     help="SD iterations of the replicated path")
-    ap.add_argument("--cert-iters", type=int, default=100,
-                    help="SD iterations of the certified path")
-    ap.add_argument("--cert-eval-samples", type=int, default=16384,
-                    help="samples of the certified path's MC panels")
+    ap.add_argument("--cert-iters", type=int, default=50,
+                    help="SD iterations of the certified path (100 until "
+                    "the script outgrew its 1200 s; the EF route does not "
+                    "read them)")
+    ap.add_argument("--cert-eval-samples", type=int, default=8192,
+                    help="samples of the certified path's MC panels (16384 "
+                    "until the storm phase needed the script's time)")
+    ap.add_argument("--storm-iters", type=int, default=200,
+                    help="SD iterations of the storm path's f32 leg (the "
+                    "reference bench runs 1500)")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "certify,cert_polish,mesh,cli,cli_rep,cli_cert,cli_gap,"
-                    "cli_run")
+                    "storm,certify,cert_polish,mesh,cli,cli_cert,"
+                    "cli_gap,cli_run")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2293,9 +2482,11 @@ def main() -> int:
                    ("pdhg_halpern_round", halpern),
                    ("pdhg_halpern_cluster", halpern),
                    ("pdhg_halpern_tile", halpern),
+                   ("pdhg_halpern_stream", halpern),
                    ("pdhg_average_round", average),
                    ("pdhg_average_cluster", average),
                    ("pdhg_average_tile", average),
+                   ("pdhg_average_stream", average),
                    ("admm_round", "sqlp_tpu/ops/pallas/admm_kernel.py:95"))}
     t0 = time.perf_counter()
     pending = []

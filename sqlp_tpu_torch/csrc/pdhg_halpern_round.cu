@@ -29,6 +29,12 @@
 // throughput, bounds that regime: each thread then has few
 // independent L2 loads in flight, so the reduction loops are unrolled to
 // raise memory-level parallelism.
+//
+// Where the plan sends it (ops/cuda/pdhg_kernel.py:_plan): a K small enough
+// for L1 (lands), whose products no cluster would speed up, and what no
+// other variant takes. The L2-bound regime above, a K whose slices fit no
+// cluster (storm), goes to the stream variant (pdhg_halpern_stream.cu),
+// which streams K through shared memory for tiles of 16 rows.
 
 #include "pdhg_common.cuh"
 

@@ -38,14 +38,15 @@
 //   All traffic between CTAs is stores (st.shared::cluster), which do not
 //   stall the sender; loads through a mapped generic pointer were measured
 //   at a full round trip each, one after the other.
-// - Arithmetic: float64 on mma.sync.m16n8k8.f64 (full IEEE; measured at
-//   twice the rate of four m8n8k4 on the H100). float32 as scalar FP32
-//   FMAs on the same tiles and output fragments, summed in blocks of 8 k
-//   as the float64 instruction sums them. 3xTF32 matrix instructions took
-//   half the time, but their operands keep about 22 of float32's 24 bits:
-//   at one decision of the main path the Monte-Carlo panels took 11.9 %
-//   more rounds than under the row-block kernel's FP32 FMAs (the FMA tiles
-//   0.2 %), so they were taken out.
+// - Arithmetic, one per dtype: float64 on mma.sync.m16n8k8.f64 (full
+//   IEEE; measured at twice the rate of four m8n8k4 on the H100); float32
+//   as scalar FP32 FMAs on the same tiles and output fragments, summed in
+//   blocks of 8 k as the float64 instruction sums them, the one float32
+//   arithmetic measured so far that passes both float32 gates
+//   (chip_smoke.py:_f32_gate). The tensor-core candidates measured faster
+//   and taken out (3xTF32; FP64 mma on widened float32 operands; split
+//   TF32 with six terms), each with the gate it failed and its times, are
+//   in PERF.md section 6.
 // - In the inner loop every load and register move competes with the
 //   matrix instructions for dispatch (measured: the loop's time is the sum
 //   of both), so the operands are laid out to need few. L and Yb are

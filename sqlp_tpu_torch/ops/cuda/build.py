@@ -24,10 +24,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("pdhg_halpern_round.cu", "pdhg_halpern_cluster.cu",
-            "pdhg_halpern_tile.cu", "pdhg_average_round.cu",
-            "pdhg_average_cluster.cu", "pdhg_average_tile.cu",
+            "pdhg_halpern_tile.cu", "pdhg_halpern_stream.cu",
+            "pdhg_average_round.cu", "pdhg_average_cluster.cu",
+            "pdhg_average_tile.cu", "pdhg_average_stream.cu",
             "admm_round.cu")
-_HEADERS = ("pdhg_common.cuh", "pdhg_cluster.cuh", "pdhg_tile.cuh")
+_HEADERS = ("pdhg_common.cuh", "pdhg_cluster.cuh", "pdhg_tile.cuh",
+            "pdhg_stream.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -50,11 +52,14 @@ _SIGNATURES = {
     "pdhg_average_round": [_I] + _AVERAGE,
     "pdhg_average_cluster": [_I] * 2 + _AVERAGE,
     "pdhg_average_tile": [_I] * 2 + _AVERAGE,
+    "pdhg_halpern_stream": [_I] * 3 + _HALPERN,
+    "pdhg_average_stream": [_I] * 3 + _AVERAGE,
     "admm_round": [_I] + [_P] * 13 + [_I] * 4 + [_D, _D, _P],
 }
 # cudaOccupancyMaxActiveClusters queries: integers, then the int* result
 _OCCUPANCY = {"pdhg_halpern_cluster": 6, "pdhg_average_cluster": 6,
-              "pdhg_halpern_tile": 4, "pdhg_average_tile": 4}
+              "pdhg_halpern_tile": 4, "pdhg_average_tile": 4,
+              "pdhg_halpern_stream": 5, "pdhg_average_stream": 5}
 
 
 def _nvcc() -> str:
@@ -139,6 +144,8 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"{stem}_occupancy")
                 fn.argtypes = [_I] * n_ints + [_P]
                 fn.restype = ctypes.c_int
+            lib.pdhg_stream_smem.argtypes = [_I] * 4
+            lib.pdhg_stream_smem.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

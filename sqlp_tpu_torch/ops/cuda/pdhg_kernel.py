@@ -11,7 +11,7 @@ Two rounds, one per restart scheme of ``solve_batch``:
   :106-147, 265-330); plain version :func:`pdhg_average_round_ref` (the
   loop of ``sqlp_tpu/ops/pdhg.py:330-340``).
 
-Each has three kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
+Each has four kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
 the same function, and :func:`_plan` picks one from the shapes, the dtype
 and the card's cluster occupancy:
 
@@ -24,9 +24,14 @@ and the card's cluster occupancy:
   computed, one way per dtype (``_TILE_ARITH``): ``"mma"`` in float64
   (FP64 matrix instructions), ``"fma"`` in float32 (FP32 FMAs on the same
   tiles, summed in blocks of 8 k);
+- ``("stream", C, TM)``: ``pdhg_{halpern,average}_stream.cu`` (both from
+  ``pdhg_stream.cuh``), a K whose slices fit no cluster (storm): K streamed
+  from L2 through shared memory every step for tiles of TM = 16 rows on a
+  cluster of C CTAs; float32 in the row-block kernels' order of summation
+  (bit for bit theirs), float64 on FP64 matrix instructions;
 - ``("rows", ROWS)``: ``pdhg_{halpern,average}_round.cu``, the row-block
-  kernels (K read from L2) for what neither takes: a K small enough for
-  L1, or a K whose slices fit no cluster.
+  kernels (K read from L2) for a K small enough for L1, and for what no
+  other variant takes.
 
 Each source's header says what bounds it on the card and how the design
 answers that. A wrapper launches its kernel for CUDA tensors and runs the
@@ -40,6 +45,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -54,6 +60,8 @@ tile_launches = 0               # pdhg_halpern_round, tile variant
 average_launches = 0            # pdhg_average_round, row-block variant
 average_cluster_launches = 0    # pdhg_average_round, cluster variant
 average_tile_launches = 0       # pdhg_average_round, tile variant
+stream_launches = 0             # pdhg_halpern_round, stream variant
+average_stream_launches = 0     # pdhg_average_round, stream variant
 # the same launches by (counter, B, itemsize): which rung of a path went
 # through which variant
 launches_by_shape = collections.Counter()
@@ -71,20 +79,48 @@ _SMEM_MAX = 227 * 1024  # dynamic shared memory one block may use (sm_90)
 # round of the cluster kernel takes 0.35 ms at R = 1, 0.33-0.48 at R = 2
 # and 0.82 at R = 4, one pass of the tile kernel 0.61-0.85 ms whatever the
 # rows in it, so the cluster kernel keeps the panels that one wave of
-# clusters of at most 2 rows holds. Where no tile shape fits (storm in
-# float32) it keeps them up to 3 waves against the row-block kernel, as
+# clusters of at most 2 rows holds. Where no tile shape fits (storm) the
+# stream variants (csrc/pdhg_stream.cuh) take the panels up to
+# _STREAM_MAX_ROWS past _CLUSTER_MAX_WAVES_VS_STREAM waves of the cluster
+# kernel (storm in float32: 12 waves of clusters of 16 CTAs and one row
+# take what one stream tile takes), and in float64, which fits no
+# cluster, every panel up to _STREAM_MAX_ROWS; where neither fits, the
+# cluster kernel keeps up to 3 waves against the row-block kernel, as
 # measured before the tile kernel existed.
 _CLUSTER_MIN_K_BYTES = 128 * 1024
 _CLUSTER_SIZES = (4, 8, 16)         # CTAs per cluster; 16 is non-portable
 _CLUSTER_ROWS = (1, 2, 4, 8)        # batch rows one cluster carries
 _CLUSTER_MAX_WAVES = 3              # against the row-block kernel
 _CLUSTER_MAX_ROWS_VS_TILE = 2       # against the tile kernel, in one wave
+_CLUSTER_MAX_WAVES_VS_STREAM = 12   # against the stream kernel
 _CLUSTER_WARPS = 16
 _CLUSTER_REGS = 108                 # 32-bit registers of the lane arrays
 _TILE_ROWS = 16                     # batch rows of a tile
 # the tile kernels' arithmetic, by itemsize (csrc/pdhg_tile.cuh)
 _TILE_ARITH = {4: "fma", 8: "mma"}
 _SCHEMES = ("halpern", "average")
+# the stream kernels (csrc/pdhg_stream.cuh:layout): batch rows of a tile,
+# cluster sizes (storm, the one K that reaches the stream plan, fits from 3
+# CTAs in float32 and only at 16 in float64), the f32 stage (elements) and
+# f64 chunk (K rows), stages
+_STREAM_TM = 16
+_STREAM_SIZES = (3, 4, 5, 6, 7, 8, 16)
+_STREAM_STAGE32 = 4096
+_STREAM_KR64 = 32
+_STREAM_MAX_STAGES = 4
+_STREAM_BAR_BYTES = 32          # an mbarrier of 8 bytes per stage
+# the dtypes whose stream variant the plan gives panels: float32 only
+# while it is bit for bit the row-block round (chip_smoke.py's b1 and b2
+# hold it so at storm's shapes); float64 is held to 1e-10 of the plain
+# round
+_STREAM_ITEMSIZES = (4, 8)
+# the largest panel, by (itemsize, scheme), the stream kernel takes; the
+# row-block kernel takes larger ones (None: no limit). From the sweep at
+# storm's shapes (PERF.md): from 1024 rows the row-block kernel's 2 or 4
+# rows a block measured faster, except the Halpern round in float64,
+# where a block holds 2 rows to the stream kernel's 16
+_STREAM_MAX_ROWS = {(4, "halpern"): 256, (4, "average"): 256,
+                    (8, "halpern"): None, (8, "average"): 256}
 
 
 @functools.lru_cache(maxsize=1)
@@ -223,27 +259,161 @@ def _tile_shape(B: int, m: int, n: int, itemsize: int,
         _tile_passes(B, C, m, n, itemsize, scheme), -C)), arith
 
 
+def _up4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _stream_layout(C: int, m: int, n: int, itemsize: int):
+    """(elements before the ring, elements of a stage, stages, fits) of a
+    stream kernel's CTA (mirrors csrc/pdhg_stream.cuh:layout; the same
+    under either scheme). A CTA owns nc columns, a multiple of 16 bytes.
+    float32: the tile's full L [m, TM] and Yb [n, TM], the owned columns'
+    Y and anchor or sum [TM, nc], the owned rows' anchor or sum and
+    right-hand side [mc, TM], bounds, q and row scalars; float64: the tile
+    kernel's regions without the resident K, the exchange buffer's rows
+    per owner even, stages of 32 K rows at a stride of 8 mod 16. The
+    stages' mbarriers take the last 32 bytes."""
+    TM = _STREAM_TM
+    v = 16 // itemsize
+    nc = -(-(-(-n // C)) // v) * v
+    if itemsize == 4:
+        mc = -(-m // C)
+        base = (_up4(m * TM) + _up4(n * TM) + 2 * _up4(TM * nc)
+                + 2 * _up4(mc * TM) + 3 * _up4(nc) + 3 * TM)
+        stage = _STREAM_STAGE32
+        units_ok = stage // nc >= 1 and nc <= 512
+    else:
+        ncp = -(-nc // 8) * 8
+        mp = -(-m // 8) * 8
+        mc = (-(-m // C) + 1) // 2 * 2
+        base = (TM * mp + _up4(C * TM * mc) + TM * ncp + 2 * TM * (ncp + 4)
+                + 2 * _up4(TM * mc) + 3 * ncp + 3 * TM)
+        stage = _STREAM_KR64 * (ncp + 8 if ncp % 16 == 0 else ncp)
+        units_ok = ncp // 8 <= 32
+    cap = (_SMEM_MAX - _STREAM_BAR_BYTES) // itemsize
+    stages = min(_STREAM_MAX_STAGES, (cap - base) // stage) if cap > base \
+        else 0
+    return base, stage, stages, stages >= 2 and units_ok
+
+
+def _stream_smem(C: int, m: int, n: int, itemsize: int) -> int:
+    """Shared memory of one CTA of a stream kernel, in bytes: the regions,
+    as many stages (at most 4) as 227 KB hold and their mbarriers; 0 where
+    fewer than 2 stages fit or the threads cannot take the step."""
+    base, stage, stages, ok = _stream_layout(C, m, n, itemsize)
+    return (base + stages * stage) * itemsize + _STREAM_BAR_BYTES if ok \
+        else 0
+
+
+# K with its rows padded to a multiple of 16 bytes, by (device, dtype):
+# (a weak reference to the K it pads, K's version, the padded copy)
+_PADDED_K = {}
+
+
+def _stream_k(K: torch.Tensor):
+    """(K, ldk): K with its row stride ldk padded to a multiple of 16
+    bytes, zeros past column n, as the stream kernels' bulk copies need.
+    The padded copy is kept while the same tensor, unmodified, comes back
+    (every round of a solve hands the wrapper one K)."""
+    m, n = K.shape
+    v = 16 // K.element_size()
+    ldk = -(-n // v) * v
+    if ldk == n:
+        return K, ldk
+    key = (K.device, K.dtype)
+    held = _PADDED_K.get(key)
+    if held is not None and held[0]() is K and held[1] == K._version:
+        return held[2], ldk
+    Kp = torch.zeros((m, ldk), dtype=K.dtype, device=K.device)
+    Kp[:, :n] = K
+    _PADDED_K[key] = (weakref.ref(K), K._version, Kp)
+    return Kp, ldk
+
+
+def _stream_fits(C: int, TM: int, m: int, n: int, itemsize: int) -> bool:
+    """The stream kernel takes (C, TM) at these shapes: a cluster size it
+    is launched with, tiles of 16 rows, and a footprint that fits."""
+    return (C in _STREAM_SIZES and TM == _STREAM_TM
+            and 0 < _stream_smem(C, m, n, itemsize) <= _SMEM_MAX)
+
+
+@functools.lru_cache(maxsize=256)
+def _stream_clusters_per_wave(C: int, m: int, n: int, itemsize: int,
+                              scheme: str = "halpern") -> int:
+    """Clusters of C CTAs of the scheme's stream kernel that the current
+    card runs at once at these shapes, asked once per shape."""
+    return _occupancy(f"pdhg_{scheme}_stream", int(itemsize == 8), C,
+                      _STREAM_TM, m, n)
+
+
+def _stream_step_cost(C: int, m: int, n: int, itemsize: int) -> int:
+    """The busiest thread's (float32) or warp's (float64) products in one
+    step of a tile on a cluster of C: float32 FMAs of its G units (one per
+    8 rows of an owned column; 512 threads) and of its S rows (a warp per
+    owned row, 16 batch rows per lane and column); float64 matrix
+    instructions of its G column tiles and of its S row tiles (4 warps per
+    chunk of 32 rows)."""
+    nc = -(-n // C)
+    if itemsize == 4:
+        mc = -(-m // C)
+        return (-(-2 * nc // 512) * m * 8
+                + -(-mc // 16) * -(-n // 32) * 16)
+    njt = -(-nc // 8)
+    mp = -(-m // 8) * 8
+    return -(-njt // 16) * mp // 8 + -(-mp // _STREAM_KR64) * njt
+
+
+def _stream_shape(B: int, m: int, n: int, itemsize: int,
+                  scheme: str = "halpern"):
+    """(C, TM) of the stream variant for a [B] panel, or None where no
+    cluster size fits: the fewest waves of tiles times the busiest
+    thread's products in a step, then the larger cluster."""
+    fit = [C for C in _STREAM_SIZES
+           if _stream_fits(C, _STREAM_TM, m, n, itemsize)
+           and _stream_clusters_per_wave(C, m, n, itemsize, scheme) > 0]
+    if not fit:
+        return None
+    tiles = -(-B // _STREAM_TM)
+
+    def cost(C):
+        per_wave = _stream_clusters_per_wave(C, m, n, itemsize, scheme)
+        return -(-tiles // per_wave) * _stream_step_cost(C, m, n, itemsize)
+    return min(fit, key=lambda C: (cost(C), -C)), _STREAM_TM
+
+
 @functools.lru_cache(maxsize=512)
 def _plan(B: int, m: int, n: int, itemsize: int,
           scheme: str = "halpern") -> tuple:
     """The variant of the scheme's round for a [B] panel of an [m, n] K:
-    ``("cluster", C, R)``, ``("tile", C, arith)`` or ``("rows", ROWS)``. A
-    function of the shapes and the dtype's size, and for a K of at least
-    ``_CLUSTER_MIN_K_BYTES`` of the card's cluster occupancy: a panel that
-    one wave of small clusters holds takes the cluster kernel, a larger one
-    the tile kernel, and what fits neither the row-block kernel."""
+    ``("cluster", C, R)``, ``("tile", C, arith)``, ``("stream", C, TM)``
+    or ``("rows", ROWS)``. A function of the shapes and the dtype's size,
+    and for a K of at least ``_CLUSTER_MIN_K_BYTES`` of the card's cluster
+    occupancy: a panel that one wave of small clusters holds takes the
+    cluster kernel, a larger one the tile kernel; where no tile shape fits,
+    the stream kernel takes what the cluster kernel does not, and what
+    fits none of them the row-block kernel."""
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}")
     if m * n * itemsize >= _CLUSTER_MIN_K_BYTES:
         tile = _tile_shape(B, m, n, itemsize, scheme)
-        max_rows, max_waves = (8, _CLUSTER_MAX_WAVES) if tile is None \
-            else (_CLUSTER_MAX_ROWS_VS_TILE, 1)
+        most = _STREAM_MAX_ROWS[itemsize, scheme]
+        stream = _stream_shape(B, m, n, itemsize, scheme) \
+            if tile is None and itemsize in _STREAM_ITEMSIZES \
+            and (most is None or B <= most) else None
+        if tile is not None:
+            max_rows, max_waves = _CLUSTER_MAX_ROWS_VS_TILE, 1
+        elif stream is not None:
+            max_rows, max_waves = 8, _CLUSTER_MAX_WAVES_VS_STREAM
+        else:
+            max_rows, max_waves = 8, _CLUSTER_MAX_WAVES
         shape = _cluster_shape(B, m, n, itemsize, scheme, max_rows)
         if shape is not None and _waves(B, *shape, m, n, itemsize, scheme) \
                 <= max_waves:
             return ("cluster",) + shape
         if tile is not None:
             return ("tile",) + tile
+        if stream is not None:
+            return ("stream",) + stream
     return ("rows", _rows_per_block(f"pdhg_{scheme}_round", B,
                                     _row_values(m, n, scheme) * itemsize))
 
@@ -356,7 +526,7 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
     current stream, raise if the launch is refused, and count it."""
     name = f"pdhg_{scheme}_round"
     if not (isinstance(plan, tuple) and plan
-            and plan[0] in ("rows", "cluster", "tile")
+            and plan[0] in ("rows", "cluster", "tile", "stream")
             and len(plan) == (2 if plan[0] == "rows" else 3)):
         raise ValueError(f"{name}: unknown plan {plan!r}")
     it = K.element_size()
@@ -364,6 +534,16 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
         stem, head = name, (plan[1],)
     elif plan[0] == "cluster":
         stem, head = f"pdhg_{scheme}_cluster", plan[1:]
+    elif plan[0] == "stream":
+        C, TM = plan[1:]
+        if not _stream_fits(C, TM, m, n, it):
+            raise ValueError(f"{name}: no stream kernel for {plan!r} at "
+                             f"m={m} n={n} itemsize={it}")
+        if _stream_clusters_per_wave(C, m, n, it, scheme) <= 0:
+            raise ValueError(f"{name}: the card cannot schedule {plan!r}")
+        Kp, ldk = _stream_k(K)
+        stem, head = f"pdhg_{scheme}_stream", (C, TM, ldk)
+        operands = (Kp,) + tuple(operands[1:])
     else:
         C, arith = plan[1:]
         if not _tile_fits(C, m, n, it, arith):
@@ -383,9 +563,12 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
     counter = {("halpern", "rows"): "launches",
                ("halpern", "cluster"): "cluster_launches",
                ("halpern", "tile"): "tile_launches",
+               ("halpern", "stream"): "stream_launches",
                ("average", "rows"): "average_launches",
                ("average", "cluster"): "average_cluster_launches",
-               ("average", "tile"): "average_tile_launches"}[scheme, plan[0]]
+               ("average", "tile"): "average_tile_launches",
+               ("average", "stream"): "average_stream_launches",
+               }[scheme, plan[0]]
     globals()[counter] += 1
     launches_by_shape[counter, B, it] += 1
 

@@ -65,12 +65,15 @@ def _variant(name, B, dtype, variant, scheme="halpern"):
             pdhg_kernel._row_values(m, n, scheme) * it))
     if variant == "tile":
         return ("tile",) + pdhg_kernel._tile_shape(B, m, n, it, scheme)
+    if variant == "stream":
+        return ("stream",) + pdhg_kernel._stream_shape(B, m, n, it, scheme)
     return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it, scheme)
 
 
 _COUNTERS = ("launches", "cluster_launches", "tile_launches",
-             "average_launches", "average_cluster_launches",
-             "average_tile_launches")
+             "stream_launches", "average_launches",
+             "average_cluster_launches", "average_tile_launches",
+             "average_stream_launches")
 
 
 def _counts():
@@ -79,10 +82,12 @@ def _counts():
 
 def _counter(scheme, plan):
     return {"rows": "launches", "cluster": "cluster_launches",
-            "tile": "tile_launches"}[plan[0]] if scheme == "halpern" else {
-                "rows": "average_launches",
-                "cluster": "average_cluster_launches",
-                "tile": "average_tile_launches"}[plan[0]]
+            "tile": "tile_launches",
+            "stream": "stream_launches"}[plan[0]] if scheme == "halpern" \
+        else {"rows": "average_launches",
+              "cluster": "average_cluster_launches",
+              "tile": "average_tile_launches",
+              "stream": "average_stream_launches"}[plan[0]]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -195,6 +200,92 @@ def test_forced_plans_that_do_not_fit_raise(cuda):
     with pytest.raises(RuntimeError, match="failed to launch"):
         pdhg_kernel.pdhg_average_round(*args[:10], 80,
                                        plan=("cluster", 2, 8))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("per_el_q", [False, True])
+@pytest.mark.parametrize("B,C", [(2, None), (16, None), (100, None),
+                                 (256, None), (1024, None), (4096, None),
+                                 (100, 3), (100, 4), (100, 5), (100, 8)])
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_stream_kernels_match_plain(cuda, scheme, B, C, per_el_q, dtype,
+                                    tol):
+    """The stream kernels of both schemes vs their plain versions over one
+    80-step round at storm's shapes (the SD panel, 16 rows, a ragged
+    tile, the MC ladder's rungs), at the plan's cluster size and at other
+    sizes that fit (float32 only: float64 fits only 16), shared and per-row
+    q: within 1e-4 in f32 and 1e-10 in f64; two launches bitwise equal,
+    each counted under the stream variant; in float32 bit for bit the
+    row-block kernel's round."""
+    args = _round_args("storm", B, dtype, cuda, per_el_q)
+    m, n = args[0].shape
+    it = args[0].element_size()
+    if C is None:
+        C = pdhg_kernel._stream_shape(B, m, n, it, scheme)[0]
+    if not pdhg_kernel._stream_fits(C, 16, m, n, it):
+        pytest.skip(f"stream ({C}, 16) does not fit storm in {dtype}")
+    plan = ("stream", C, 16)
+    if scheme == "average":
+        args = args[:10]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    before = _counts()
+    out = kernel(*args, 80, plan=plan)
+    again = kernel(*args, 80, plan=plan)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[_counter(scheme, plan)] += 2
+    assert _counts() == want
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+    ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
+    for o, r in zip(out, ref):
+        scale = 1.0 + float(r.abs().max())
+        assert float((o - r).abs().max()) <= tol * scale
+    if dtype == torch.float32:
+        rows = kernel(*args, 80, plan=_variant("storm", B, dtype, "rows",
+                                               scheme))
+        assert all(torch.equal(a, o) for a, o in zip(rows, out))
+
+
+def test_stream_kernel_keeps_nan(cuda):
+    """A row that has diverged to NaN stays NaN through the stream kernel
+    in both dtypes, and does not leak into the other rows of its tile."""
+    for dtype in (torch.float32, torch.float64):
+        args = list(_round_args("storm", 16, dtype, cuda, False))
+        args[8] = args[8].clone()
+        args[8][3, 5] = float("nan")
+        out = pdhg_kernel.pdhg_halpern_round(*args, 8,
+                                             plan=("stream", 16, 16))
+        ref = pdhg_kernel.pdhg_halpern_round_ref(*args, 8)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            assert torch.equal(torch.isnan(o), torch.isnan(r))
+            assert bool(torch.isnan(o[3]).any())
+            keep = [i for i in range(16) if i != 3]
+            assert bool(torch.isfinite(o[keep]).all())
+
+
+def test_forced_stream_plans_that_do_not_fit_raise(cuda):
+    """A stream plan the kernel cannot take at storm's shapes raises
+    before any launch: 2 CTAs in f32 (no size of the kernel's: 630
+    columns a CTA), any size but 16 in f64 (no room for two stages),
+    tiles of 32 rows; the smem the wrapper counts is the kernel's own at
+    every size."""
+    from sqlp_tpu_torch.ops.cuda import build
+    lib = build.load()
+    m, n = 528, 1259
+    for it in (4, 8):
+        for C in pdhg_kernel._STREAM_SIZES:
+            assert lib.pdhg_stream_smem(int(it == 8), C, m, n) \
+                == pdhg_kernel._stream_smem(C, m, n, it)
+    for dtype, plan in ((torch.float32, ("stream", 2, 16)),
+                        (torch.float64, ("stream", 8, 16)),
+                        (torch.float32, ("stream", 8, 32))):
+        args = _round_args("storm", 16, dtype, cuda, False)
+        before = _counts()
+        with pytest.raises(ValueError, match="no stream kernel"):
+            pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
+        assert _counts() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

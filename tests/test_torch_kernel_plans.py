@@ -5,9 +5,9 @@ cluster occupancy.
 The expected variants are the ones the H100 measurements chose
 (``chip_smoke.py --phases sweep``; PERF.md): for either PDHG round the
 cluster kernel for the small panels of an instance whose K does not fit
-L1, the tile kernel (tensor cores) for its large panels, the row-block
-kernel for a small K or a K whose slices fit no cluster, and the master on
-a cluster of 8 (one block for a master as small as lands').
+L1, the tile kernel for its large panels, the stream kernel for a K whose
+slices fit no cluster (storm), the row-block kernel for a small K, and the
+master on a cluster of 8 (one block for a master as small as lands').
 """
 
 import pytest
@@ -21,10 +21,10 @@ torch.set_num_threads(1)
 _SHAPES = {}
 SMEM_MAX = 227 * 1024
 
-# cudaOccupancyMaxActiveClusters of the cluster and the tile kernels on an
-# NVIDIA H100 80GB HBM3 (132 SMs), the same at every footprint the plans
-# admit: one CTA per SM (chip_smoke.py --phases sweep prints it)
-H100_CLUSTERS_PER_WAVE = {4: 30, 8: 15, 16: 7}
+# cudaOccupancyMaxActiveClusters of the cluster, tile and stream kernels
+# on an NVIDIA H100 80GB HBM3 (132 SMs), the same at every footprint the
+# plans admit: one CTA per SM (chip_smoke.py --phases sweep prints it)
+H100_CLUSTERS_PER_WAVE = {3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 16: 7}
 
 
 @pytest.fixture
@@ -33,6 +33,8 @@ def h100(monkeypatch):
     monkeypatch.setattr(pdhg_kernel, "_clusters_per_wave",
                         lambda C, *rest: H100_CLUSTERS_PER_WAVE[C])
     monkeypatch.setattr(pdhg_kernel, "_tile_clusters_per_wave",
+                        lambda C, *rest: H100_CLUSTERS_PER_WAVE[C])
+    monkeypatch.setattr(pdhg_kernel, "_stream_clusters_per_wave",
                         lambda C, *rest: H100_CLUSTERS_PER_WAVE[C])
     monkeypatch.setattr(pdhg_kernel, "_sm_count", lambda: 132)
     pdhg_kernel._plan.cache_clear()
@@ -60,24 +62,36 @@ _PDHG = {
                  ("tile", 4, F32)),
     ("ssn", 8): (("cluster", 16, 1), ("cluster", 8, 2), ("tile", 8, "mma"),
                  ("tile", 8, "mma")),
-    ("storm", 4): (("cluster", 16, 1), ("cluster", 16, 1), ROWS1, ROWS4),
-    ("storm", 8): (ROWS1, ROWS1, ROWS1, ROWS2),
+    ("storm", 4): (("cluster", 16, 1), ("cluster", 16, 1),
+                   ("stream", 6, 16), ROWS4),
+    ("storm", 8): (("stream", 16, 16),) * 4,
 }
 
 
 def _check_admitted(plan, B, m, n, itemsize, scheme):
-    """A cluster or tile plan's footprint fits a CTA and its registers."""
+    """A cluster, tile or stream plan's footprint fits a CTA and its
+    registers; a stream plan names a cluster size the kernel is launched
+    with and tiles of 16 rows."""
     if plan[0] == "cluster":
         _, C, R = plan
         assert pdhg_kernel._cluster_fits(C, R, m, n, itemsize, scheme)
         assert pdhg_kernel._cluster_smem(C, R, m, n, itemsize, R, scheme) \
             <= SMEM_MAX
         assert pdhg_kernel._waves(B, C, R, m, n, itemsize, scheme) \
-            <= pdhg_kernel._CLUSTER_MAX_WAVES
+            <= max(pdhg_kernel._CLUSTER_MAX_WAVES,
+                   pdhg_kernel._CLUSTER_MAX_WAVES_VS_STREAM)
     elif plan[0] == "tile":
         _, C, arith = plan
         assert arith == pdhg_kernel._TILE_ARITH[itemsize]
         assert pdhg_kernel._tile_smem(C, m, n, itemsize) <= SMEM_MAX
+    elif plan[0] == "stream":
+        _, C, TM = plan
+        assert C in pdhg_kernel._STREAM_SIZES and TM == 16
+        assert itemsize in pdhg_kernel._STREAM_ITEMSIZES
+        assert 0 < pdhg_kernel._stream_smem(C, m, n, itemsize) <= SMEM_MAX
+        assert pdhg_kernel._stream_fits(C, TM, m, n, itemsize)
+    else:
+        assert plan[0] == "rows" and plan[1] in (1, 2, 4)
 
 
 @pytest.mark.parametrize("B", PANELS)
@@ -90,8 +104,12 @@ def test_pdhg_plan(h100, name, itemsize, B):
     per row (measured faster than 8), B = 16 one wave of 4-CTA clusters in
     f32 and of 8-CTA clusters with 2 rows in f64, and from B = 256 the tile
     kernel on 30 clusters of 4 (f32) or 15 of 8 (f64: K's f64 slices need
-    8 CTAs); storm's f32 K fits only the cluster kernel at 16 CTAs, no
-    tile shape, and its f64 K (5.3 MB) no cluster at all."""
+    8 CTAs); storm's f32 K fits only the cluster kernel at 16 CTAs and no
+    tile shape, so past 12 waves of the cluster kernel its panels stream
+    K (256 rows on one wave of clusters of 6) up to 256 rows, and larger
+    ones take the row-block kernel (measured faster there); its f64 K
+    (5.3 MB) fits no cluster at all: every panel streams on clusters of
+    16."""
     m, n = _shape(name)
     plan = pdhg_kernel._plan(B, m, n, itemsize)
     assert plan == _PDHG[(name, itemsize)][PANELS.index(B)]
@@ -103,10 +121,12 @@ def test_pdhg_plan(h100, name, itemsize, B):
 @pytest.mark.parametrize("name", INSTANCES)
 def test_average_plan(h100, name, itemsize, B):
     """The average round's variant at the same panels (16 is the replicated
-    SD step's panel at 8 replications). Its cluster and tile kernels take
-    what the Halpern round's take; on the row-block kernel a row keeps 3
-    vectors of each length instead of 4, so storm's f64 MC panel carries 4
-    rows per block where the Halpern round carries 2."""
+    SD step's panel at 8 replications). Its cluster, tile and stream
+    kernels take what the Halpern round's take (the stream kernels' shared
+    memory is the same under either scheme), but storm's f64 MC panel goes
+    to the row-block kernel, which carries 4 rows a block under this
+    scheme (3 vectors of each length a row, against the Halpern round's
+    4) and measured faster there than the stream kernel."""
     m, n = _shape(name)
     plan = pdhg_kernel._plan(B, m, n, itemsize, "average")
     want = _PDHG[(name, itemsize)][PANELS.index(B)]
@@ -298,3 +318,116 @@ def test_admm_plan_refuses_a_master_too_large():
     before any launch."""
     with pytest.raises(ValueError, match="does not fit"):
         admm_kernel._plan(4000, 600, 8)
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_every_panel_gets_an_admitted_plan(h100, scheme):
+    """Every instance of the table, both dtypes, the SD panels and the MC
+    ladder's rungs (1 to 4096 rows) get a plan whose variant takes the
+    shapes."""
+    for name in INSTANCES:
+        m, n = _shape(name)
+        for itemsize in (4, 8):
+            for B in (1, 2, 16, 64, 100, 256, 512, 768, 1024, 4096):
+                plan = pdhg_kernel._plan(B, m, n, itemsize, scheme)
+                _check_admitted(plan, B, m, n, itemsize, scheme)
+
+
+def _stream_smem_by_region(C, m, n, itemsize):
+    """csrc/pdhg_stream.cuh:layout, region by region, its stages and their
+    mbarriers (32 bytes); a CTA's columns start 16 bytes apart."""
+    TM = 16
+    v = 16 // itemsize
+    nc = -(-(-(-n // C)) // v) * v
+
+    def up4(x):
+        return -(-x // 4) * 4
+    if itemsize == 4:
+        mc = -(-m // C)
+        regions = {"L": up4(m * TM), "Yt": up4(n * TM), "Y": up4(TM * nc),
+                   "Ya": up4(TM * nc), "La": up4(mc * TM),
+                   "hs": up4(mc * TM), "lbs": up4(nc), "ubs": up4(nc),
+                   "qs": up4(nc), "rows": 3 * TM}
+        stage = 4096
+    else:
+        ncp, mp = -(-nc // 8) * 8, -(-m // 8) * 8
+        mc = (-(-m // C) + 1) // 2 * 2
+        regions = {"Lf": TM * mp, "Rx": up4(C * TM * mc), "Yb": TM * ncp,
+                   "Y": TM * (ncp + 4), "Ya": TM * (ncp + 4),
+                   "La": up4(TM * mc), "hs": up4(TM * mc), "lbs": ncp,
+                   "ubs": ncp, "qs": ncp, "rows": 3 * TM}
+        stage = 32 * (ncp + 8 if ncp % 16 == 0 else ncp)
+    assert all(r % 4 == 0 for r in regions.values())   # 16-byte loads
+    base = sum(regions.values())
+    stages = min(4, max(0, (SMEM_MAX - 32) // itemsize - base) // stage)
+    return (base + stages * stage) * itemsize + 32, stages
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", INSTANCES)
+def test_stream_smem_mirrors_the_kernel_layout(name, itemsize):
+    """_stream_smem is the sum of the kernel's shared-memory regions and
+    of as many K stages (at most 4) as 227 KB hold, and _stream_fits
+    admits exactly the cluster sizes with at least 2 stages (in float32
+    also at most 512 owned columns, in float64 at most 32 column tiles):
+    storm from 3 CTAs in f32, only 16 in f64, where the tile's L and the
+    exchange buffer leave room for two stages of 32 rows of K."""
+    m, n = _shape(name)
+    fits = set()
+    for C in pdhg_kernel._STREAM_SIZES:
+        want, stages = _stream_smem_by_region(C, m, n, itemsize)
+        v = 16 // itemsize
+        nc = -(-(-(-n // C)) // v) * v
+        ok = stages >= 2 and (nc <= 512 if itemsize == 4
+                              else -(-nc // 8) <= 32)
+        assert pdhg_kernel._stream_smem(C, m, n, itemsize) \
+            == (want if ok else 0)
+        assert pdhg_kernel._stream_fits(C, 16, m, n, itemsize) == ok
+        assert not pdhg_kernel._stream_fits(C, 32, m, n, itemsize)
+        if ok:
+            fits.add(C)
+            assert want <= SMEM_MAX
+    if name == "storm":
+        assert fits == ({3, 4, 5, 6, 7, 8, 16} if itemsize == 4 else {16})
+
+
+@pytest.mark.parametrize("plan", [("stream", 2, 16), ("stream", 16, 32),
+                                  ("stream", 9, 16), ("stream", 8, 8)])
+def test_launch_refuses_a_stream_plan_the_kernel_does_not_take(plan):
+    """A forced stream plan whose footprint misses a CTA's shared memory,
+    whose cluster size the kernel is not launched with or whose tile is
+    not 16 rows raises at the wrapper, before the card is asked: 2 CTAs
+    are no size of the kernel's (storm's f32 K there would leave 630
+    columns to a CTA's 512 threads)."""
+    K = torch.zeros((528, 1259))
+    with pytest.raises(ValueError, match="no stream kernel"):
+        pdhg_kernel._launch("halpern", plan, K, (), 64, 528, 1259, 80)
+
+
+def test_stream_plan_keeps_float32_off_while_not_admitted(h100,
+                                                          monkeypatch):
+    """With float32 out of _STREAM_ITEMSIZES (its admission rule: the f32
+    stream round neither bit for bit the row-block round nor through the
+    f32 gate), storm's f32 panels past the cluster kernel's 3 waves go
+    back to the row-block kernel, and f64 keeps the stream kernel."""
+    m, n = _shape("storm")
+    assert pdhg_kernel._plan(100, m, n, 4) == ("stream", 16, 16)
+    monkeypatch.setattr(pdhg_kernel, "_STREAM_ITEMSIZES", (8,))
+    pdhg_kernel._plan.cache_clear()
+    assert pdhg_kernel._plan(100, m, n, 4) == ROWS1
+    assert pdhg_kernel._plan(16, m, n, 4) == ("cluster", 16, 1)
+    assert pdhg_kernel._plan(256, m, n, 8) == ("stream", 16, 16)
+    pdhg_kernel._plan.cache_clear()
+
+
+def test_stream_plan_on_storm_ladder(h100):
+    """Storm's f32 panels: the cluster kernel while 12 waves of it hold
+    the panel (84 rows), then the stream kernel up to 256 rows, then the
+    row-block kernel; the f64 Halpern round streams at every size."""
+    m, n = _shape("storm")
+    assert pdhg_kernel._plan(84, m, n, 4) == ("cluster", 16, 1)
+    assert pdhg_kernel._plan(85, m, n, 4)[0] == "stream"
+    assert pdhg_kernel._plan(256, m, n, 4)[0] == "stream"
+    assert pdhg_kernel._plan(257, m, n, 4)[0] == "rows"
+    for B in (1, 2, 257, 1024, 4096, 8192):
+        assert pdhg_kernel._plan(B, m, n, 8) == ("stream", 16, 16)
