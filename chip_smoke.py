@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,mesh
     python3 chip_smoke.py --phases device,mesh_nccl     # on 4 cards
     python3 chip_smoke.py --phases device,storm --storm-iters 1500
+    python3 chip_smoke.py --phases device,surface
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
@@ -27,7 +28,9 @@ average scheme), and the storm path (`storm`: the reference bench's
 storm_time_to_gap, SD on storm in float32 from the projected x0 = 0 and
 its 8192-sample stratified MC bound, held to a band around the
 literature optimum; then 30 float64 iterations and a 4096-row panel; its
-large panels, and every float64 one, on the stream kernels). The main
+large panels, and every float64 one, on the stream kernels; then 10
+float64 iterations under the average scheme, whose SD panel is the path of
+B2's stream kernel). The main
 and the replicated path also hold the tile
 kernel's float32 products (FP32 FMAs in the tile kernel's order) to a
 gate over whole solves: the same 4096-row panels, at the same x over
@@ -75,7 +78,13 @@ float64 on a 2x2 mesh of 4 rank processes against one rank at 1e-8, and
 ssn's flagship CLI `--mesh 2 --shard-duals` at S 4096, D 2048 through
 `--coordinator`, each rank reporting its own launches; `mesh_nccl` (not
 run by default: 4 cards) gives each rank a card of its own, so the
-ranks join over NCCL. Any failed phase exits non-zero. The
+ranks join over NCCL. `surface`, before the CLI phases, drives the public
+surface: every name the port's package `__init__`s re-export,
+`solve_instance("lands", 20)` held bit for bit to `SDSolver.run(20)`, and
+`saa_ef_bound` on two lands replications in float64 (64 fresh scenarios)
+under the default dual repair, the raw duals with no host re-solve and
+no f64 continuation, each bound at most its EF objective. Any failed
+phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
 
@@ -746,22 +755,27 @@ def phase_main(results, iters, gate=False, path="main"):
 # upper limit is 2 % above it
 STORM_UB = (15_480_000.0, 15_810_000.0)
 STORM_F64_ITERS = 30
+# the f64 leg under scheme="average": its SD panel (2 rows) is the one path
+# of pdhg_average_stream
+STORM_AVG_ITERS = 10
 STORM_MORE_ITERS = 100      # added per look while mc_ub is above the band
 # seconds the storm phase may spend on such looks: the default script takes
 # 1116-1152 s of its 1200 s limit on the H100 (PERF.md), so about one look
 STORM_EXTRA_S = 60.0
 
 
-def _storm_solver(dtype):
+def _storm_solver(dtype, scheme="halpern"):
     """The reference bench's storm solver: SDConfig(pdhg=PDHGConfig(
-    tol=1e-4, max_iters=80_000)) in ``dtype``, from x0 = 0 projected onto
-    storm's first-stage rows (SDSolver's default start), seed 0."""
+    tol=1e-4, max_iters=80_000)) in ``dtype`` under the PDHG ``scheme``,
+    from x0 = 0 projected onto storm's first-stage rows (SDSolver's
+    default start), seed 0."""
     import torch
     from sqlp_tpu_torch.config import PDHGConfig, SDConfig
     from sqlp_tpu_torch.models.instance import load_instance
     from sqlp_tpu_torch.sd.driver import SDSolver
 
-    cfg = SDConfig(dtype=dtype, pdhg=PDHGConfig(tol=1e-4, max_iters=80_000))
+    cfg = SDConfig(dtype=dtype, pdhg=PDHGConfig(scheme=scheme, tol=1e-4,
+                                                max_iters=80_000))
     inst = load_instance("storm", dtype=cfg.jdtype,
                          device=torch.device("cuda"))
     return SDSolver(inst, cfg, seed=0)
@@ -773,9 +787,10 @@ def phase_storm(results, iters):
     escalation ladder); while mc_ub sits above STORM_UB and the next look
     fits in STORM_EXTRA_S seconds, STORM_MORE_ITERS more iterations and a
     new bound (the gate fails on the last mc_ub when they are spent). f64:
-    STORM_F64_ITERS iterations and one 4096-row stratified panel. Gates: a
-    stream kernel launched on the path, every number finite, the f32 mc_ub
-    within STORM_UB."""
+    STORM_F64_ITERS iterations and one 4096-row stratified panel; then
+    STORM_AVG_ITERS f64 iterations under scheme="average". Gates: both
+    stream kernels launched on the path, no row-block average round,
+    every number finite, the f32 mc_ub within STORM_UB."""
     import torch
 
     _reset_counts()
@@ -826,19 +841,38 @@ def phase_storm(results, iters):
     torch.cuda.synchronize()
     mc64_s = time.perf_counter() - t0
     lb64 = s64.lower_estimate
-    counts = _counts()
     log(f"[storm] f64 {STORM_F64_ITERS} iters in {sd64_s:.2f}s "
         f"({STORM_F64_ITERS / sd64_s:.3f} it/s) lb_est={lb64:.4f} "
         f"mc_ub={ub64:.4f} +- {hw64:.4f} (N={n64}, {mc64_s:.2f}s) "
         f"host_fallbacks={s64.host_fallback_count}")
+    halpern_rungs = _by_rung()
+    t0 = time.perf_counter()
+    savg = _storm_solver("float64", scheme="average")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    last = savg.run(STORM_AVG_ITERS)
+    torch.cuda.synchronize()
+    avg_s = time.perf_counter() - t1
+    lb_avg = savg.lower_estimate
+    inc_avg = float(last["inc_est"])
+    counts = _counts()
+    log(f"[storm] f64 average {STORM_AVG_ITERS} iters in {avg_s:.2f}s "
+        f"({time.perf_counter() - t0:.2f}s with the solver's set-up) "
+        f"lb_est={lb_avg:.4f} inc_est={inc_avg:.4f} "
+        f"host_fallbacks={savg.host_fallback_count}")
     log(f"[storm] launches: {json.dumps(counts)}")
     log(f"[storm] launches by rung (f32 leg): {f32_rungs}")
-    log(f"[storm] launches by rung (both legs): {_by_rung()}")
-    numbers = (lb, ub, hw, lb64, ub64, hw64)
+    log(f"[storm] launches by rung (both Halpern legs): {halpern_rungs}")
+    log(f"[storm] launches by rung (all legs): {_by_rung()}")
+    numbers = (lb, ub, hw, lb64, ub64, hw64, lb_avg, inc_avg)
     if not all(math.isfinite(v) for v in numbers):
         raise AssertionError(f"storm: non-finite numbers {numbers}")
-    _record_launches(results, counts, ("pdhg_halpern_stream", "admm_round"),
+    _record_launches(results, counts, ("pdhg_halpern_stream",
+                                       "pdhg_average_stream", "admm_round"),
                      "storm")
+    if counts["pdhg_average_round"]:
+        raise AssertionError(f"storm's average leg left the stream kernel "
+                             f"for the row-block round: {_by_rung()}")
     if not STORM_UB[0] <= ub <= STORM_UB[1]:
         raise AssertionError(f"storm mc_ub {ub} after {done} iterations "
                              f"({extra_s:.1f}s of {STORM_EXTRA_S:.0f}s "
@@ -1205,11 +1239,17 @@ def phase_replicated(results, iters):
         sampling="stratified"))
 
 
+# SD iterations of each small-path run (40 until the surface phase, which
+# also drives lands through the row-block kernels, needed the time)
+SMALL_ITERS = 20
+
+
 def phase_small(results):
     """The small path: lands, whose K (under 1 KB) stays in L1 and on the
     row-block kernels. A single SD run under the Halpern scheme with its
     MC bound, then 3 lockstep replications under the average scheme with
-    theirs; each driven with the counts reset before and read after."""
+    theirs, SMALL_ITERS iterations each; each driven with the counts reset
+    before and read after."""
     import numpy as np
     import torch
     from sqlp_tpu_torch.config import PDHGConfig, SDConfig
@@ -1229,18 +1269,140 @@ def phase_small(results):
         else:
             solver = SDReplications(inst, cfg, n_replications=3, x0=x0,
                                     seed=0)
-        solver.run(40)
+        solver.run(SMALL_ITERS)
         x = None if scheme == "halpern" else solver.x_incumbents[0]
         ub, hw, n = solver.evaluate_ci(x=x, min_samples=1024,
                                        max_samples=1024, seed=1)
         torch.cuda.synchronize()
         counts = _counts()
-        log(f"[small] lands scheme={scheme}: 40 iterations + a {n}-row MC "
-            f"panel in {time.perf_counter() - t0:.2f}s, mc_ub={ub:.4f} +- "
-            f"{hw:.4f}; launches by rung: {_by_rung()}")
+        log(f"[small] lands scheme={scheme}: {SMALL_ITERS} iterations + a "
+            f"{n}-row MC panel in {time.perf_counter() - t0:.2f}s, "
+            f"mc_ub={ub:.4f} +- {hw:.4f}; launches by rung: {_by_rung()}")
         if not (math.isfinite(ub) and math.isfinite(hw)):
             raise AssertionError(f"non-finite lands bound {ub} +- {hw}")
         _record_launches(results, counts, (key,), f"small {scheme}")
+
+
+# the surface phase: the port's packages, each re-exporting the names of
+# its JAX counterpart's __init__ (tests/test_torch_public_surface.py holds
+# the lists to the JAX package's on the CPU); lands runs of SURFACE_ITERS
+# SD iterations (40 until the phase outgrew its 20 s: a lands iteration
+# takes about 0.23 s on the card, most of it the master's ADMM intervals,
+# each read by the host); SURFACE_EF_SCENARIOS fresh certification
+# scenarios for each of the R = 2 lands replications of SURFACE_REP_ITERS
+# iterations
+SURFACE_PACKAGES = ("sqlp_tpu_torch", "sqlp_tpu_torch.models",
+                    "sqlp_tpu_torch.ops", "sqlp_tpu_torch.parallel",
+                    "sqlp_tpu_torch.sd", "sqlp_tpu_torch.utils")
+SURFACE_ITERS = 20
+SURFACE_REP_ITERS = 10
+SURFACE_EF_SCENARIOS = 64
+# the EF's tolerance (the certified path's 1e-5 takes about 8000 iterations
+# on lands at 0.46 ms each, launch-bound; 1e-4 about 900) and the f64
+# continuation's cap (4000 by default; on lands it stops on the cap either
+# way): the gates hold the bounds to validity, not to tightness
+SURFACE_EF_TOL = 1e-4
+SURFACE_REFINE_ITERS = 1000
+# saa_ef_bound's dual repairs: the default projection, the raw EF duals
+# with no host re-solve, no f64 continuation
+SURFACE_EF_OPTIONS = ({}, {"refine_duals": False, "host_exact_cap": 0},
+                      {"refine_f64": False})
+
+
+def _differing_fields(a, b):
+    """The names of the SDState fields that differ in any bit."""
+    import torch
+    return [f for f in a.__dataclass_fields__
+            if not (torch.equal(getattr(a, f), getattr(b, f))
+                    if torch.is_tensor(getattr(a, f))
+                    else getattr(a, f) == getattr(b, f))]
+
+
+def phase_surface(results):
+    """The public surface on the card: every name the port's package
+    ``__init__``s re-export; ``solve_instance("lands", SURFACE_ITERS)``
+    (the CLI's subproblem tolerance and iteration cap, seed 0) held bit
+    for bit to ``SDSolver(load_instance("lands"), cfg, seed=0).run``; then
+    ``saa_ef_bound`` on R = 2 lands replications in float64 over
+    SURFACE_EF_SCENARIOS fresh scenarios under each of
+    SURFACE_EF_OPTIONS. Gates: every bound finite and at most its EF
+    objective (1e-6 relative), no host re-solve under cap 0, the row-block
+    Halpern round and B3 launched."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    n_names = 0
+    for p in SURFACE_PACKAGES:
+        mod = importlib.import_module(p)
+        for name in mod.__all__:
+            getattr(mod, name)
+            n_names += 1
+    from sqlp_tpu_torch import SDConfig
+    from sqlp_tpu_torch.config import PDHGConfig
+    from sqlp_tpu_torch.models import load_instance
+    from sqlp_tpu_torch.sd import SDSolver, solve_instance
+    from sqlp_tpu_torch.sd.driver import SDReplications
+    from sqlp_tpu_torch.sd.lower_bound import saa_ef_bound
+    log(f"[surface] {n_names} names of {len(SURFACE_PACKAGES)} packages "
+        f"imported in {time.perf_counter() - t0:.2f}s")
+
+    _reset_counts()
+    cfg = SDConfig(pdhg=PDHGConfig(tol=1e-4, max_iters=60_000))
+    t0 = time.perf_counter()
+    got = solve_instance("lands", SURFACE_ITERS, config=cfg, seed=0,
+                         verbose=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = SDSolver(load_instance("lands"), cfg, seed=0)
+    ref.run(SURFACE_ITERS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    differ = _differing_fields(got.state, ref.state)
+    log(f"[surface] solve_instance lands {SURFACE_ITERS} iters "
+        f"{t1 - t0:.2f}s, SDSolver.run {t2 - t1:.2f}s: lb_est "
+        f"{got.lower_estimate:.6f} / {ref.lower_estimate:.6f}, state "
+        f"bit for bit: {not differ}")
+    if differ:
+        raise AssertionError(f"solve_instance differs from SDSolver.run in "
+                             f"{differ}")
+
+    cfg64 = SDConfig(dtype="float64", max_scenarios=64, max_dual_vertices=64,
+                     max_cuts=16, pdhg=PDHGConfig(tol=1e-4))
+    t0 = time.perf_counter()
+    reps = SDReplications(load_instance("lands", dtype=torch.float64), cfg64,
+                          n_replications=2, x0=np.full(4, 3.0), seed=0)
+    reps.run(SURFACE_REP_ITERS)
+    torch.cuda.synchronize()
+    log(f"[surface] lands f64 R=2 x {SURFACE_REP_ITERS} iters in "
+        f"{time.perf_counter() - t0:.2f}s")
+    ef_config = PDHGConfig(tol=SURFACE_EF_TOL, max_iters=400_000)
+    for opts in SURFACE_EF_OPTIONS:
+        t0 = time.perf_counter()
+        out = saa_ef_bound(reps.arrays, reps.scenario_model, reps.espec,
+                           reps.states, reps.config,
+                           obj_scale=reps.obj_scale, ef_config=ef_config,
+                           fresh_scenarios=SURFACE_EF_SCENARIOS,
+                           refine_iters=SURFACE_REFINE_ITERS, **opts)
+        sec = time.perf_counter() - t0
+        lb, ef = out["lb_per_rep"], out["ef_obj_per_rep"]
+        log(f"[surface] saa_ef_bound {json.dumps(opts)}: lb {lb.tolist()} "
+            f"ef_obj {ef.tolist()} ef_iters {out['ef_iters_per_rep'].tolist()}"
+            f" dual_infeas {out['dual_infeas_per_rep'].tolist()} host_exact "
+            f"{out['host_exact_count']} n_unrefined {out['n_unrefined']} "
+            f"in {sec:.2f}s ({json.dumps(out['seconds'])})")
+        if not (np.all(np.isfinite(lb))
+                and np.all(lb <= ef + 1e-6 * np.abs(ef))):
+            raise AssertionError(f"saa_ef_bound {opts}: bounds {lb} not "
+                                 f"finite or above the EF objectives {ef}")
+        if opts.get("host_exact_cap") == 0 and out["host_exact_count"]:
+            raise AssertionError(f"saa_ef_bound {opts}: "
+                                 f"{out['host_exact_count']} host re-solves")
+    counts = _counts()
+    _record_launches(results, counts, ("pdhg_halpern_round", "admm_round"),
+                     "surface")
 
 
 # the mesh phase: lands in float64 on a 2x2 mesh against one rank, the
@@ -2422,6 +2584,8 @@ def run_phase(ph, args, results, memo):
         phase_replicated(results, args.rep_iters)
     elif ph == "small":
         phase_small(results)
+    elif ph == "surface":
+        phase_surface(results)
     elif ph == "storm":
         phase_storm(results, args.storm_iters)
     elif ph == "mesh":
@@ -2460,8 +2624,8 @@ def main() -> int:
                     "reference bench runs 1500)")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "storm,certify,cert_polish,mesh,cli,cli_cert,"
-                    "cli_gap,cli_run")
+                    "storm,certify,cert_polish,mesh,surface,cli,"
+                    "cli_cert,cli_gap,cli_run")
     args = ap.parse_args()
     phases = args.phases.split(",")
 

@@ -13,7 +13,16 @@ PyTorch on an NVIDIA H100. Layout mirrors the reference:
              layout and the step's combines
   utils/     process configuration, checkpoints, JSONL metrics, profiling
 
-This package imports torch, numpy and scipy, never jax.
+This package imports torch, numpy and scipy, never jax. Each package's
+``__init__`` re-exports the names of its JAX counterpart's, resolved on
+first access (``_exports.py``): ``from sqlp_tpu_torch import SDConfig``,
+``from sqlp_tpu_torch.sd import SDSolver, solve_instance``.
 """
 
+from sqlp_tpu_torch._exports import lazy_exports
+
 __version__ = "0.1.0"
+
+__all__, __getattr__, __dir__ = lazy_exports(__name__, {
+    "sqlp_tpu_torch.config": ("SDConfig",),
+})

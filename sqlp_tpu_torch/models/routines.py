@@ -1,11 +1,14 @@
 """Host-side (exact) LP routines: HiGHS via scipy, float64.
 
-Port of record: ``sqlp_tpu/models/routines.py:28-330`` (``solve_lp_host``,
-``project_first_stage``, ``recourse_lower_bound``), unchanged numpy code;
-tensor arguments are read back to the host first. This is the exact
-oracle and fallback of the batched PDHG solver (ops/pdhg.py);
-``oracle_solve_batch`` (:350-415) is that oracle in ``solve_batch``'s
-shape, a test aid.
+Port of record: ``sqlp_tpu/models/routines.py:28-349`` (``solve_lp_host``,
+``solve_problem``, ``project_first_stage``, ``recourse_lower_bound``,
+``evaluate_host``), unchanged numpy code; tensor arguments are read back
+to the host first. This is the exact oracle and fallback of the batched
+PDHG solver (ops/pdhg.py), and ``solve_problem`` / ``evaluate_host`` are
+the reference's serial host path (``solve_problem!`` and ``evaluate``,
+src/smps/smps_routines.jl:50-82): one stage LP at a time on the host, no
+device. ``oracle_solve_batch`` (:350-415) is the oracle in
+``solve_batch``'s shape, a test aid.
 
 Dual sign convention matches JuMP's for MIN problems: the dual of a
 constraint is d(objective)/d(rhs), so duals of '>=' rows are >= 0 and duals
@@ -15,12 +18,14 @@ beta = -T' pi) pins this convention.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.optimize
 
-from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_G, SENSE_L
+from sqlp_tpu_torch.models.smps_sto import Scenario, StoData, sample_scenario
+from sqlp_tpu_torch.models.stage import (SENSE_E, SENSE_G, SENSE_L, StageLP,
+                                         instantiate)
 
 
 def _np(a, dtype=None) -> np.ndarray:
@@ -66,6 +71,21 @@ def solve_lp_host(c: np.ndarray, A: np.ndarray, rhs: np.ndarray,
     if A_eq is not None:
         duals[e] = np.asarray(res.eqlin.marginals, dtype=np.float64)
     return float(res.fun), np.asarray(res.x, dtype=np.float64), duals
+
+
+def solve_problem(sp: StageLP, last_stage_val: np.ndarray,
+                  scenario: Scenario
+                  ) -> Tuple[float, np.ndarray, np.ndarray]:
+    """Solve the stage LP with last-stage vars fixed (smps_routines.jl:50-62).
+
+    Returns (obj, y_opt, dual_opt); dual_opt are duals of the stage
+    constraint rows only (bound duals are not returned, matching the
+    reference's cut math assumption, src/sd_algorithm/subprob.jl:17-27).
+    """
+    inst = instantiate(sp, scenario)
+    x = _np(last_stage_val, np.float64)
+    h = inst.rhs - inst.T @ x
+    return solve_lp_host(inst.c, inst.W, h, inst.senses, inst.lb, inst.ub)
 
 
 def project_first_stage(arrays, x0: np.ndarray, tol: float = 1e-7
@@ -316,6 +336,27 @@ def recourse_lower_bound(arrays, scenario_model, normal_sigmas: float = 10.0
                       f"explicit epigraph lower bound")
         return float("-inf")
     return float(res.fun) + const_term
+
+
+def evaluate_host(sp1: StageLP, sp2: StageLP, sto: StoData, x: np.ndarray,
+                  n_samples: int = 10_000,
+                  rng: Optional[np.random.Generator] = None) -> float:
+    """Monte-Carlo upper-bound estimate at x (smps_routines.jl:67-82):
+    ``n_samples`` scenarios drawn by ``sample_scenario`` from ``rng``
+    (``default_rng(0)`` when None), each stage-2 LP solved by HiGHS.
+
+    Serial host path; the batched estimator on the device is
+    ``SDSolver.evaluate`` / ``evaluate_ci`` (sd/driver.py).
+    """
+    rng = rng or np.random.default_rng(0)
+    x = _np(x, np.float64)
+    s1_cost = float(sp1.c @ x)
+    s2_cost = 0.0
+    for _ in range(n_samples):
+        scenario = sample_scenario(rng, sto)
+        obj, _, _ = solve_problem(sp2, x, scenario)
+        s2_cost += obj / n_samples
+    return s1_cost + s2_cost
 
 
 def oracle_solve_batch(prep, H, config=None, Y0=None, L0=None, Q=None):

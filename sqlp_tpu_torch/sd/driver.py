@@ -6,9 +6,9 @@ Port of record: ``sqlp_tpu/sd/driver.py:SDSolver`` (``__init__`` :45-187,
 ``saa_lower_bound`` :349-362, ``select_decision`` :364-396,
 ``sharpen_duals_host`` :398-481, ``_warmstart_pool`` :483, ``_prep_sub64``
 :493-508, ``_recourse_objs`` :510-678, ``evaluate`` :689-715,
-``evaluate_ci`` :717-819) and ``SDReplications`` (:843-940,
-``certified_lower_bound`` :941-1032, ``solve_to_certified_gap``
-:1034-1164, 1165-1186).
+``evaluate_ci`` :717-819), ``solve_instance`` (:822-840) and
+``SDReplications`` (:843-940, ``certified_lower_bound`` :941-1032,
+``solve_to_certified_gap`` :1034-1164, 1165-1186).
 
 Every tensor lives on the instance's device; the solver owns an explicit
 ``torch.Generator`` on that device, seeded from ``seed``, for the scenario
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from sqlp_tpu_torch.config import SDConfig
-from sqlp_tpu_torch.models.instance import Instance
+from sqlp_tpu_torch.models.instance import Instance, load_instance
 from sqlp_tpu_torch.models.routines import (project_first_stage,
                                             recourse_lower_bound,
                                             solve_lp_host)
@@ -636,6 +636,32 @@ class SDSolver:
         first = float(self.arrays.c @ x)
         s_ = self.obj_scale
         return (first + mean) * s_, hw * s_, n
+
+
+def solve_instance(name_or_dir: str, n_iters: int = 1000,
+                   config: SDConfig = SDConfig(), x0=None,
+                   seed: int = 0, log_every: int = 100,
+                   verbose: bool = True, device="cuda") -> SDSolver:
+    """Convenience one-call driver (the reference's script pattern): load
+    the instance on ``device`` (the card by default; a host without one
+    raises, ``device="cpu"`` runs the plain versions), run ``n_iters``
+    iterations, print a line per run chunk and the wall time when
+    ``verbose``, return the solver."""
+    inst = load_instance(name_or_dir, dtype=config.jdtype, device=device)
+    solver = SDSolver(inst, config, x0=x0, seed=seed)
+
+    def cb(i, stats):
+        if verbose:
+            print(f"[{inst.name}] iter {i}: lb_est={stats['cand_est']:.4f} "
+                  f"inc_est={stats['inc_est']:.4f} rho={stats['rho']:.4g} "
+                  f"duals={int(stats['n_duals'])} "
+                  f"cuts={int(stats['n_cuts_live'])}")
+
+    t0 = time.time()
+    solver.run(n_iters, log_every=log_every, callback=cb)
+    if verbose:
+        print(f"[{inst.name}] {n_iters} iters in {time.time() - t0:.1f}s")
+    return solver
 
 
 class SDReplications(SDSolver):

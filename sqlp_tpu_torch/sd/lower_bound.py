@@ -35,10 +35,11 @@ replication 2k+1 certifies on the complement of replication 2k's stream.
 means) into a Student-t confidence bound on the true optimum. The
 validity caveats and the measurements behind each default are those of
 the port of record's docstrings. Not ported: ``refine_mode="resolve"``
-(it crashes the bound to the epigraph floor on degenerate recourse), and
-the reference's ``vmap_group`` split and ``ef_chunk_iters`` (both work
-around TPU compile and program-length limits). The f64 refinement always
-runs: the reference skips it only on the TPU backend.
+(it crashes the bound to the epigraph floor on degenerate recourse; the
+port raises ValueError), and the reference's ``vmap_group`` split and
+``ef_chunk_iters`` (both work around TPU compile and program-length
+limits). The f64 continuation runs unless ``refine_f64=False``: the
+reference's default (None) skips it only on the TPU backend.
 """
 
 from __future__ import annotations
@@ -760,8 +761,9 @@ def _lagrangian_corrections(arrays, scenario_model, deltas_re, pt_re,
     return term.sum(axis=1), relv
 
 
-# the f64 continuation's tolerance, and the most scenarios per replication
-# re-solved exactly on the host
+# the defaults of saa_ef_bound's refine_tol (the f64 continuation's
+# tolerance) and host_exact_cap (the most scenarios per replication
+# re-solved exactly on the host)
 REFINE_TOL = 1e-6
 HOST_EXACT_CAP = 1024
 
@@ -770,10 +772,16 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
                  config, obj_scale: float = 1.0,
                  extra_scenarios: int = 0, seed: int = 9000,
                  ef_config=None, extra_cuts: Optional[Sequence] = None,
+                 refine_f64: Optional[bool] = None,
+                 refine_tol: float = REFINE_TOL,
                  refine_iters: int = 4000,
                  fresh_scenarios: int = 0,
                  fresh_sampling: str = "stratified",
-                 fresh_pairing=None) -> Dict:
+                 fresh_pairing=None,
+                 refine_duals: bool = True,
+                 refine_mode: str = "project",
+                 refine_duals_tol: float = 1e-7,
+                 host_exact_cap: int = HOST_EXACT_CAP) -> Dict:
     """SAA lower bound from extensive-form dual certificates.
 
     For each replication, solve the sample-average extensive form over
@@ -784,13 +792,17 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
     minimum of c'x + sum_e w_e max(cut_e, lb_e) over the first-stage
     polytope (host HiGHS f64, :func:`cut_model_min`) is the bound.
 
-    Validity, in three layers: the minimal-movement projection walks the
-    duals to dual feasibility; scenarios still violating above 1e-3
-    relative are re-solved exactly on the host (at most
-    ``HOST_EXACT_CAP`` per replication); the remaining epsilon is
-    deducted from each cut by the exact weak-duality correction
-    (``cut_correction_per_rep``). Certificates past 5e-2 relative
-    violation are rejected: their bound is reported as -inf.
+    Validity, in three layers: with ``refine_duals`` (the default) the
+    minimal-movement projection (``refine_mode="project"``, the only mode
+    ported) walks the duals to dual feasibility, while
+    ``refine_duals=False`` takes the raw EF duals; scenarios still
+    violating above 1e-3 relative are re-solved exactly on the host (at
+    most ``host_exact_cap`` per replication, the worst first); the
+    remaining epsilon is deducted from each cut by the exact weak-duality
+    correction (``cut_correction_per_rep``). Certificates past 5e-2
+    relative violation are rejected: their bound is reported as -inf.
+    ``refine_duals_tol`` is accepted as in the port of record, whose
+    projection does not read it either: it runs a fixed 2500 steps.
 
     ``fresh_scenarios`` replaces each replication's stream by a fresh one
     (``fresh_sampling``, Latin hypercube by default); ``extra_scenarios``
@@ -799,18 +811,29 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
     :func:`_certification_streams`. ``extra_cuts`` (per replication a
     list of (e, alpha, beta), scaled units, valid for the same streams:
     :func:`saa_polish`'s ``cuts_per_rep`` under the same seed) joins the
-    aggregate cuts in each final cut-model minimum. ``refine_iters`` caps
-    the f64 continuation.
+    aggregate cuts in each final cut-model minimum. ``refine_f64=False``
+    skips the f64 continuation (None or True runs it), which stops at
+    ``refine_tol`` or ``refine_iters`` iterations.
 
     Returns lb_per_rep, x_ef_per_rep, ef_obj_per_rep, ef_err_per_rep,
     dual_infeas_per_rep, cut_correction_per_rep, host_exact_count,
-    n_unrefined, n_scenarios (bounds unscaled), and, beyond the port of
-    record, ef_iters_per_rep / refine_iters_per_rep (the two passes),
+    n_unrefined (R·E·N raw duals without ``refine_duals``, else 0),
+    n_scenarios (bounds unscaled), and, beyond the port of record,
+    ef_iters_per_rep / refine_iters_per_rep (the two passes; 0 without
+    the continuation),
     ef_err_first_per_rep (the first pass's error) and ``seconds``: the
     wall time of the f32 EF solve (``ef``), the f64 continuation
     (``refine``), the dual projection (``projection``) and the host part
     (``host``: corrections, exact re-solves, aggregate cuts, HiGHS).
     """
+    if refine_mode == "resolve":
+        raise ValueError(
+            "refine_mode='resolve' is not ported: per-scenario re-solves land "
+            "on other optimal vertices of degenerate recourse and crash the "
+            "aggregate cut to the epigraph floor (measured on ssn); use "
+            "'project' or refine_duals=False")
+    if refine_mode != "project":
+        raise ValueError(f"unknown refine_mode {refine_mode!r}")
     R = len(states)
     E = int(states[0].cut_alpha.shape[0])
     n_scen = _np(states[0].n_scen)
@@ -857,16 +880,22 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
     # f64 continuation warm-started at the f32 solution: the f32 duals'
     # per-scenario feasibility floors near the f32 roundoff of the
     # p_s-scaled objective; a short f64 continuation has no such floor
-    t0 = time.perf_counter()
     f8 = torch.float64
-    cfg64 = dataclasses.replace(ef_config, tol=REFINE_TOL,
-                                max_iters=refine_iters)
-    x_ef, obj_ef, stats64, duals, Y_ef, u0_ef = solve_extensive_form(
-        _to64(arrays), _to64(scenario_model), deltas_u.to(f8),
-        probs_u.to(f8), cfg64, return_duals=True, x0=x_ef.to(f8),
-        Y0=Y_ef.to(f8), U0=duals.to(f8), u00=u0_ef.to(f8))
-    seconds["refine"] = time.perf_counter() - t0
-    ef_err = _np64(stats64["ef_err"])
+    refine_iters_done = np.zeros(R, np.int64)
+    seconds["refine"] = 0.0
+    if refine_f64 is None or refine_f64:
+        t0 = time.perf_counter()
+        cfg64 = dataclasses.replace(ef_config, tol=refine_tol,
+                                    max_iters=refine_iters)
+        x_ef, obj_ef, stats64, duals, Y_ef, u0_ef = solve_extensive_form(
+            _to64(arrays), _to64(scenario_model), deltas_u.to(f8),
+            probs_u.to(f8), cfg64, return_duals=True, x0=x_ef.to(f8),
+            Y0=Y_ef.to(f8), U0=duals.to(f8), u00=u0_ef.to(f8))
+        seconds["refine"] = time.perf_counter() - t0
+        ef_err = _np64(stats64["ef_err"])
+        refine_iters_done = _np(stats64["ef_iters"])
+    else:
+        ef_err = ef_err_first
 
     # per-scenario recourse duals: EF block duals over their weights
     pt = duals / torch.clamp(torch.as_tensor(
@@ -875,8 +904,17 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
 
     t0 = time.perf_counter()
     qn = float(1.0 + np.max(np.abs(_np64(arrays.q))))
-    pt_h, H_h, Ymax, n_unrefined = _refine_recourse_duals(
-        arrays, scenario_model, deltas_u, x_ef, Y_ef, pt)
+    if refine_duals:
+        pt_h, H_h, Ymax, n_unrefined = _refine_recourse_duals(
+            arrays, scenario_model, deltas_u, x_ef, Y_ef, pt)
+    else:
+        # the raw EF duals (a copy: the host-exact repair writes into it)
+        pt_h = np.array(_np64(pt))
+        H_h = np.stack([
+            _np64(_scenario_rhs(arrays, scenario_model, deltas_u[r], x_ef[r]))
+            for r in range(R)])
+        Ymax = _np64(Y_ef.abs().amax(dim=(0, 1)))
+        n_unrefined = R * E * N
     seconds["projection"] = time.perf_counter() - t0
 
     # host-exact repair of the worst offenders, then the exact
@@ -898,13 +936,13 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
         # destroys the aggregate cut's joint slope structure; mild epsilon
         # goes through the corrections instead
         fix = np.flatnonzero(relv > 1e-3)
-        if fix.size > HOST_EXACT_CAP:
+        if fix.size > host_exact_cap:
             warnings.warn(
                 f"replication {r}: {fix.size} certification scenarios "
                 f"still violate dual feasibility > 1e-3 after the f64 "
-                f"refinement; repairing only the worst {HOST_EXACT_CAP} "
+                f"refinement; repairing only the worst {host_exact_cap} "
                 f"on the host (the rest carry exact corrections)")
-            fix = fix[np.argsort(relv[fix])[::-1][:HOST_EXACT_CAP]]
+            fix = fix[np.argsort(relv[fix])[::-1][:host_exact_cap]]
         for s in fix:
             qs = (_cost_rows(scenario_model, deltas_uh[r, s:s + 1],
                              q64h)[0]
@@ -986,7 +1024,7 @@ def saa_ef_bound(arrays, scenario_model, espec, states: Sequence,
         "n_scenarios": N,
         "ef_iters_per_rep": ef_iters,
         "ef_err_first_per_rep": ef_err_first,
-        "refine_iters_per_rep": _np(stats64["ef_iters"]),
+        "refine_iters_per_rep": refine_iters_done,
         "seconds": seconds,
     }
 

@@ -23,7 +23,7 @@ from sqlp_tpu.config import SDConfig as JSDConfig
 from sqlp_tpu.models.instance import load_instance as jax_load_instance
 from sqlp_tpu.sd.driver import SDSolver as JSDSolver
 from sqlp_tpu_torch.cli import main
-from sqlp_tpu_torch.config import PDHGConfig, SDConfig
+from sqlp_tpu_torch.config import PDHGConfig, QPConfig, SDConfig
 from sqlp_tpu_torch.models.instance import load_instance
 from sqlp_tpu_torch.sd.driver import SDReplications, SDSolver
 from sqlp_tpu_torch.sd.state import state_from_numpy
@@ -124,11 +124,21 @@ def _streams(inst, N, seed):
                       - base)[None] for r in range(R)])
 
 
-@pytest.mark.parametrize("name", ["lands", "transship"])
-def test_saa_ef_bound_matches_jax(name, lands, monkeypatch):
-    """R = 2 replications on injected 64-scenario streams. The EF budget
-    fits one chunk of the reference's chunked driver (16,384 iterations
-    in f32, 2048 in the f64 pass), which the port does not have."""
+@pytest.mark.parametrize("name, opts", [
+    ("lands", {}), ("transship", {}),
+    ("lands", {"refine_duals": False, "host_exact_cap": 0}),
+    ("lands", {"refine_f64": False})],
+    ids=["lands", "transship", "lands-raw_duals", "lands-no_f64"])
+def test_saa_ef_bound_matches_jax(name, opts, lands, monkeypatch):
+    """R = 2 replications on injected 64-scenario streams, under the
+    default dual repair and under the reference's other two options: the
+    raw EF duals with no host re-solve (only the exact corrections keep
+    the bound valid) and no f64 continuation. The EF budget fits one
+    chunk of the reference's chunked driver (16,384 iterations in f32,
+    2048 in the f64 pass), which the port does not have. Tolerances: the
+    bounds, EF objectives, argmins and errors within 1e-6 of their scale
+    (f64); the projected duals' infeasibility and corrections within
+    1e-12; the raw duals' within 1e-9 of the EF duals' scale."""
     if name == "lands":
         ps, js, states = lands
     else:
@@ -138,7 +148,7 @@ def test_saa_ef_bound_matches_jax(name, lands, monkeypatch):
         monkeypatch.setattr(mod, "_certification_streams",
                             lambda *a, **k: (deltas, np.ones(deltas.shape[:3]),
                                              False))
-    kw = dict(fresh_scenarios=64, refine_iters=2048)
+    kw = dict(fresh_scenarios=64, refine_iters=2048, **opts)
     budget = 16_000 if name == "lands" else 6_400
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -155,11 +165,18 @@ def test_saa_ef_bound_matches_jax(name, lands, monkeypatch):
         scale = 1.0 + np.abs(ref[k]).max()
         np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-6 * scale,
                                    err_msg=k)
+    raw = opts.get("refine_duals") is False
     for k in ("dual_infeas_per_rep", "cut_correction_per_rep"):
-        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-12,
+        atol = 1e-9 * (1.0 + np.abs(ref[k]).max()) if raw else 1e-12
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=atol,
                                    err_msg=k)
     assert got["host_exact_count"] == ref["host_exact_count"]
     assert got["n_scenarios"] == ref["n_scenarios"] == 64
+    assert got["n_unrefined"] == ref["n_unrefined"] == (R * 64 if raw else 0)
+    if "host_exact_cap" in opts:
+        assert got["host_exact_count"] == 0
+    if opts.get("refine_f64") is False:
+        assert not got["refine_iters_per_rep"].any()
     # valid: never above the SAA optimum the EF approximates; tight on
     # lands, while on transship the aggregate cut's small slope errors
     # over its wide first-stage box leave the model at the epigraph floor
@@ -168,6 +185,44 @@ def test_saa_ef_bound_matches_jax(name, lands, monkeypatch):
     if name == "lands":
         np.testing.assert_allclose(got["lb_per_rep"], got["ef_obj_per_rep"],
                                    rtol=1e-3)
+
+
+def test_saa_ef_bound_refuses_resolve(lands):
+    """``refine_mode="resolve"`` is not ported (it crashes the bound to
+    the epigraph floor on degenerate recourse): ValueError before any
+    solve, naming the mode; an unknown mode too."""
+    ps, _, states = lands
+    for mode, match in (("resolve", "not ported"), ("bogus", "unknown")):
+        with pytest.raises(ValueError, match=match):
+            lb.saa_ef_bound(ps.arrays, ps.scenario_model, ps.espec, states,
+                            ps.config, fresh_scenarios=8, refine_mode=mode)
+
+
+def test_ef_refine_modes_all_valid_newsvendor():
+    """The port's counterpart of the reference's
+    test_ef_refine_modes_all_valid_newsvendor at its sizes (f64, R = 2,
+    60 iterations, 256 fresh scenarios), without the unported
+    ``resolve``: the projection, the raw duals with exact corrections and
+    no host re-solve, and no f64 continuation each give a valid bound
+    that stays tight at the exact optimum 1.0 on newsvendor's
+    non-degenerate recourse (about 13 s on one CPU thread)."""
+    inst = load_instance("newsvendor", dtype=torch.float64, device="cpu")
+    cfg = SDConfig(dtype="float64", max_scenarios=256,
+                   max_dual_vertices=128, max_cuts=24,
+                   pdhg=PDHGConfig(tol=1e-8, max_iters=20_000),
+                   qp=QPConfig(tol=1e-9, max_iters=4_000))
+    s = SDReplications(inst, cfg, n_replications=2, seed=5)
+    s.run(60)
+    for kw in ({}, {"refine_duals": False, "host_exact_cap": 0},
+               {"refine_f64": False}):
+        out = lb.saa_ef_bound(s.arrays, s.scenario_model, s.espec, s.states,
+                              s.config, obj_scale=s.obj_scale,
+                              fresh_scenarios=256, **kw)
+        assert np.all(out["lb_per_rep"] <= 1.0 + 1e-3), (kw, out)
+        assert np.all(out["lb_per_rep"] >= 1.0 - 0.05), (kw, out)
+        assert out["x_ef_per_rep"].shape == (2, inst.n1)
+        if "host_exact_cap" in kw:
+            assert out["host_exact_count"] == 0
 
 
 def test_t_lower_bound_matches_jax():

@@ -12,7 +12,7 @@ import torch
 
 from sqlp_tpu.config import PDHGConfig as JPDHGConfig
 from sqlp_tpu.models.instance import load_instance as jax_load_instance
-from sqlp_tpu.models.routines import solve_problem
+from sqlp_tpu.models.routines import solve_problem as jax_solve_problem
 from sqlp_tpu.models.smps_tim import Position
 from sqlp_tpu.ops.crossover import sharpen_duals as jax_sharpen_duals
 from sqlp_tpu.ops.pdhg import prepare_lp as jax_prepare_lp
@@ -22,6 +22,7 @@ from sqlp_tpu.sd.dual_pool import push_duals as jax_push_duals
 from sqlp_tpu.sd.dual_pool import round_sig_bits as jax_round_sig_bits
 from sqlp_tpu_torch.config import SDConfig
 from sqlp_tpu_torch.models.instance import load_instance
+from sqlp_tpu_torch.models.routines import solve_problem
 from sqlp_tpu_torch.ops.crossover import _batched_solve, sharpen_duals
 from sqlp_tpu_torch.sd.cuts import (build_sasa_cut, evaluate_epigraph,
                                     quantized_argmax)
@@ -203,15 +204,11 @@ def _scenario(v):
     return [(Position("RHS", "S2C5"), float(v))]
 
 
-def test_build_sasa_cut_weighted_golden(lands):
-    """Weighted cut assembly (sd_test.jl:207-235): scenarios rhs = 3
-    (w = 1.5) and 7 (w = 0.5), duals from exact solves at x1 = 3, cut at
-    x = [2, 3, 4, 5]; 1e-12 relative to the hand computation."""
-    jinst = jax_load_instance("lands", dtype=jnp.float64)
+def _sasa_cut_golden(lands, sp2, solve_problem):
     x1 = np.full(4, 3.0)
     x = np.array([2.0, 3.0, 4.0, 5.0])
-    _, _, d5 = solve_problem(jinst.sp2, x1, _scenario(5.0))
-    _, _, d3 = solve_problem(jinst.sp2, x1, _scenario(3.0))
+    _, _, d5 = solve_problem(sp2, x1, _scenario(5.0))
+    _, _, d3 = solve_problem(sp2, x1, _scenario(3.0))
     duals, rounded, n, dropped = _empty_pool(4, lands.m2)
     duals, rounded, n, dropped = push_duals(
         duals, rounded, n, torch.as_tensor(np.array([d5, d3])), dropped)
@@ -231,6 +228,22 @@ def test_build_sasa_cut_weighted_golden(lands):
     beta = 0.75 * (-T.T @ d3) + 0.25 * (-T.T @ d5)
     assert float(cut.alpha) == pytest.approx(alpha, rel=1e-12)
     np.testing.assert_allclose(cut.beta.numpy(), beta, rtol=1e-12)
+
+
+def test_build_sasa_cut_weighted_golden(lands):
+    """Weighted cut assembly (sd_test.jl:207-235): scenarios rhs = 3
+    (w = 1.5) and 7 (w = 0.5), duals from the port's exact host solves
+    (``solve_problem``, held to the JAX package's in
+    tests/test_torch_public_surface.py) at x1 = 3, cut at x = [2, 3, 4, 5];
+    1e-12 relative to the hand computation."""
+    _sasa_cut_golden(lands, lands.sp2, solve_problem)
+
+
+def test_build_sasa_cut_weighted_golden_jax_oracle(lands):
+    """The same golden with the duals from the JAX package's
+    ``solve_problem`` on its own compiled lands."""
+    jinst = jax_load_instance("lands", dtype=jnp.float64)
+    _sasa_cut_golden(lands, jinst.sp2, jax_solve_problem)
 
 
 def _epi(cuts, inc, x, total, lb):
