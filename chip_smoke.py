@@ -15,7 +15,8 @@ Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
 variant of both PDHG rounds, row-block, cluster, tile and stream,
 wherever the variant takes the shape; the float32 stream round also to
-the row-block round's bits), and
+the row-block round's bits, and the tile rounds of both dtypes to the
+bits the first tile design gave at fixed inputs, TILE_DIGESTS), and
 drives five paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
 settings, then the Monte-Carlo upper bound over 4096 scenarios; run twice,
@@ -96,9 +97,11 @@ default, after `certify`) runs the level bundle on two of the certify
 phase's states on the card and on the host's CPU through the plain
 versions, on the same streams. The phase
 `sweep` (not run by default) times every variant the kernels admit at the
-shapes their plan functions decide between: the thresholds of
-ops/cuda/pdhg_kernel.py:_plan and ops/cuda/admm_kernel.py:_plan come from
-it.
+shapes their plan functions decide between (and the float32 tile
+kernel's tile heights): the thresholds of ops/cuda/pdhg_kernel.py:_plan
+and ops/cuda/admm_kernel.py:_plan come from it. `digests` (not run by
+default) prints the tile kernels' output digests at the fixed inputs of
+_DIGEST_CASES, the record TILE_DIGESTS holds.
 """
 
 from __future__ import annotations
@@ -355,7 +358,8 @@ def phase_pdhg(results, phase):
     variant the shape admits, timed in the same call, two launches bitwise
     equal. The float32 stream variant is also held to the row-block
     kernel's bits: where the plan admits it (rule (a) of its admission,
-    pdhg_kernel._STREAM_ITEMSIZES), a difference fails the phase."""
+    pdhg_kernel._STREAM_ITEMSIZES), a difference fails the phase. Last,
+    the scheme's tile kernel against TILE_DIGESTS, bit for bit."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -413,7 +417,13 @@ def phase_pdhg(results, phase):
                         plan[1], *args[0].shape, it, scheme)
                     passes = pk._tile_passes(B, plan[1], *args[0].shape, it,
                                              scheme)
-                    waves = f"clusters_per_wave={occ} passes={passes} "
+                    tm = pk._tile_rows(B, plan[1], *args[0].shape, it,
+                                       scheme)
+                    before = _FIRST_TILE_MS.get((scheme, inst, B, dname)) \
+                        if not per_el else None
+                    waves = (f"clusters_per_wave={occ} passes={passes} "
+                             f"tm={tm} first_kernel_ms="
+                             f"{'n/a' if before is None else before} ")
                 log(f"[{phase}] {inst} B={B} "
                     f"q={'per-el' if per_el else 'shared'} {dname} "
                     f"{plan[0]}{plan[1:]}: {waves}"
@@ -444,6 +454,241 @@ def phase_pdhg(results, phase):
                     results[key]["rowblock_ms"] = took["rows"]
     for key, v in worst.items():
         results[key]["max_abs_err"] = v
+    _hold_tile_digests(phase)
+
+
+# the first tile design's times at the rungs it took, device ms per
+# 80-step round (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this tree's
+_FIRST_TILE_MS = {
+    ("halpern", "ssn", 4096, "float32"): 15.383,
+    ("halpern", "ssn", 1024, "float32"): 5.122,
+    ("halpern", "ssn", 768, "float32"): 3.417,
+    ("halpern", "ssn", 512, "float32"): 3.413,
+    ("halpern", "ssn", 256, "float32"): 1.713,
+    ("halpern", "ssn", 8192, "float32"): 30.66,
+    ("halpern", "ssn", 16384, "float32"): 59.64,
+    ("halpern", "ssn", 256, "float64"): 1.417,
+    ("average", "ssn", 4096, "float32"): 15.477,
+    ("average", "ssn", 1024, "float32"): 5.159,
+    ("average", "ssn", 768, "float32"): 3.447,
+    ("average", "ssn", 512, "float32"): 3.439,
+    ("average", "ssn", 256, "float32"): 1.730}
+
+# The tile kernels' outputs at fixed inputs, bit for bit: (scheme,
+# instance, B, dtype, per-element q, cluster size) of every tile shape the
+# paths give the kernels (ssn's ladder and the polish panels at the plan's
+# C; the float64 rung; a ragged last tile; a single row; per-element q;
+# lands forced onto other cluster sizes)
+_DIGEST_CASES = (
+    *(("halpern", "ssn", B, "float32", False, 4)
+      for B in (1, 256, 512, 700, 768, 1024, 4096, 8000, 8192, 16000,
+                16384)),
+    *(("average", "ssn", B, "float32", False, 4)
+      for B in (256, 512, 700, 768, 1024, 4096)),
+    *((s, "ssn", 100, "float32", True, 4) for s in ("halpern", "average")),
+    *((s, "ssn", B, "float64", False, 8) for s in ("halpern", "average")
+      for B in (256, 700)),
+    *(("halpern", "lands", 40, "float32", False, C) for C in (4, 8, 16)),
+    *(("average", "lands", 40, "float32", False, C) for C in (8, 16)),
+    ("halpern", "lands", 40, "float64", False, 8))
+# the first 16 hex digits of the SHA-256 of each output's bytes (Yout,
+# Lout, Yout2, Lout2) and of all the inputs', by _digest_key of the case:
+# the first tile design (commit 2fce5b6), run on an NVIDIA H100 80GB HBM3
+# at 700 W by `chip_smoke.py --phases device,digests`
+TILE_DIGESTS = {
+    "halpern ssn B=1 float32 q=shared C=4": [
+        "2d4495cebda6d10e", "249dd5d5a10cd6bd", "3071cda093851461",
+        "cbda4480f8074df7", "a82d9730fc2abf3c"],
+    "halpern ssn B=256 float32 q=shared C=4": [
+        "9dd4ac650d5799d8", "6c3fd205ce22add4", "67b412b974d0482f",
+        "ebf2bac792092645", "093b2a8ae08fe71b"],
+    "halpern ssn B=512 float32 q=shared C=4": [
+        "f561988e59b27d0e", "3544700d00c6e727", "99651f1e34338e8d",
+        "6b9ccdff846e17b8", "d9639b0b7aa6c2e0"],
+    "halpern ssn B=700 float32 q=shared C=4": [
+        "1ab338ff399bc1f0", "e995b7a283a2c48c", "b4ce5182aa71c1fb",
+        "a0ed400d5c56c3d2", "2bf71c606eed1737"],
+    "halpern ssn B=768 float32 q=shared C=4": [
+        "4920d0a117289406", "2db20b601ad14e93", "e5c4131c21956ab0",
+        "c77e5862e2a13273", "a0fcc1a48c5b714b"],
+    "halpern ssn B=1024 float32 q=shared C=4": [
+        "1260ac4355676db1", "1cc2e22cf92eaa1f", "edb2f493bf0709d6",
+        "0c1d2726bb1a7eda", "3ee30d304136cbdb"],
+    "halpern ssn B=4096 float32 q=shared C=4": [
+        "d4c4d11d956b1f05", "497200550ea0e722", "d9384a4d32137c00",
+        "606966316b86ebd8", "16b7e937d3c06624"],
+    "halpern ssn B=8000 float32 q=shared C=4": [
+        "073dc19ddab6cb34", "c494a305329e4c53", "4c6603a0c5be50a7",
+        "2ed50f03487f2cf5", "4ac64222f9e99520"],
+    "halpern ssn B=8192 float32 q=shared C=4": [
+        "0389ecd71a8d1f7b", "2361700076ca88c7", "70dfb518dd5f2422",
+        "808d0d9b1ced9239", "8d900d9d78cc0165"],
+    "halpern ssn B=16000 float32 q=shared C=4": [
+        "77f61aed685793d7", "b1e00d3693cb0484", "85aecf2b195702d8",
+        "1086562d30dbd996", "dbe039df30889987"],
+    "halpern ssn B=16384 float32 q=shared C=4": [
+        "0bbbead63e2ef529", "7423954dd490ea2f", "b7eba63095f3925f",
+        "e25c54254c254171", "cfae0f4e9dd79942"],
+    "halpern ssn B=100 float32 q=per-el C=4": [
+        "94a7f6ad90c1bc98", "a586d2faf3e0e33b", "c896903958ecc305",
+        "4bc85bfcc2533f70", "95b79070967bf3cb"],
+    "halpern ssn B=256 float64 q=shared C=8": [
+        "8bd4345ae0c35ef4", "3ebb6f0c5eca5ebe", "fe492b241a1bdfbf",
+        "302b09b4a4b51063", "9b8b97cea38d32b4"],
+    "halpern ssn B=700 float64 q=shared C=8": [
+        "c76804c365f8e53d", "fa8248f24a4d42f5", "3c8f7c85fa25673c",
+        "eeb39adedc3205eb", "3473a1f315acf5f6"],
+    "halpern lands B=40 float32 q=shared C=4": [
+        "1cefcbc753f5c99d", "d9707c46b8ba3229", "866de968b67147f0",
+        "a3f02c3ba6e8d017", "6f71522f6a931014"],
+    "halpern lands B=40 float32 q=shared C=8": [
+        "8579dfc5652ce338", "00c6295d2874ef9c", "051c76d66ba5c79e",
+        "0a3bd9d50e4fca42", "6f71522f6a931014"],
+    "halpern lands B=40 float32 q=shared C=16": [
+        "3995e9f87f2fa439", "24b8a1744b956467", "c8b3cd88a13fbb82",
+        "1a8596592a68c1d1", "6f71522f6a931014"],
+    "halpern lands B=40 float64 q=shared C=8": [
+        "80cc001fafc85ea0", "83b5d055a4c273d3", "2ba169496ea4e4a8",
+        "ccfc4ced5ebe207c", "81fb30223759c809"],
+    "average ssn B=256 float32 q=shared C=4": [
+        "bf3b4199ffeaa531", "f5ff4bcd552be7fa", "b11f93a3c807630b",
+        "aba25e340a8f8121", "5a9ccd807386cdf0"],
+    "average ssn B=512 float32 q=shared C=4": [
+        "820fe368f88b1a82", "0e2cc94fea3da761", "f4fda71e41aa156a",
+        "289fa30f45d8bbae", "94d036fbf13e0b26"],
+    "average ssn B=700 float32 q=shared C=4": [
+        "4181c29deb22df9f", "8528b3c47de2c105", "207c8897607c9898",
+        "6688cdab1e8f5893", "064586a7c4f325ea"],
+    "average ssn B=768 float32 q=shared C=4": [
+        "24a5960438ef1bef", "7ac3f97e0bb17110", "00be4ec651a29d64",
+        "cb0cfa4b59edd7f9", "c2ef7f153719043b"],
+    "average ssn B=1024 float32 q=shared C=4": [
+        "f0ae54c94e619b18", "2864bd0978e9d4a2", "41fbc90147f162cd",
+        "eb4a970615e92fee", "7a530c2d4bb4b137"],
+    "average ssn B=4096 float32 q=shared C=4": [
+        "8d64939714bf26da", "3190d17a06b76f67", "d4d1778009bb1ddd",
+        "a79d18cc602dcbc5", "3841068a1d67e95d"],
+    "average ssn B=100 float32 q=per-el C=4": [
+        "40244a566fb64f07", "6c73b1900e75a2a1", "86117ae17b047fb2",
+        "266403796ca7f281", "26cc5c84fc001150"],
+    "average ssn B=256 float64 q=shared C=8": [
+        "e888f7b39fb93ff6", "57e38c268709f8dc", "53180db2cc23cad5",
+        "8ad88f1356c49d3d", "e8b7b3a401a8b602"],
+    "average ssn B=700 float64 q=shared C=8": [
+        "56bc2b748a578bc9", "96a5a00b0e29b5db", "d6504b4cfdc163a7",
+        "42419724a9467a34", "08fe76c694238627"],
+    "average lands B=40 float32 q=shared C=8": [
+        "a134f5a5b126803c", "da720afb57da62eb", "f5886809ccbc06b3",
+        "d60b17d1e7e91916", "6e5955c3936f5952"],
+    "average lands B=40 float32 q=shared C=16": [
+        "a134f5a5b126803c", "da720afb57da62eb", "f5886809ccbc06b3",
+        "d60b17d1e7e91916", "6e5955c3936f5952"],
+}
+
+
+def _digest_key(scheme, inst, B, dname, per_el, C):
+    return (f"{scheme} {inst} B={B} {dname} "
+            f"q={'per-el' if per_el else 'shared'} C={C}")
+
+
+def _digest_inputs(inst, B, dname, per_el, seed=0):
+    """A Halpern round's 13 operands on the card, the same bits on every
+    host: the instance's prepared recourse LP (built on the CPU in float64)
+    with K and q on a grid of 2^-16, power-of-two steps under 0.7 / ||K||
+    (scaled per row by 1 + k / 16), and iterates, anchors, right-hand side
+    and step counts from numpy's generator on grids of powers of two."""
+    import numpy as np
+    import torch
+    from sqlp_tpu_torch.models.instance import load_instance
+    from sqlp_tpu_torch.ops.pdhg import prepare_lp
+
+    a = load_instance(inst, dtype=torch.float64, device="cpu").arrays
+    lp = prepare_lp(a.W, a.senses2, a.q, a.lb2, a.ub2)
+    rng = np.random.default_rng(seed)
+
+    def grid(x, bits):
+        return np.round(np.asarray(x, dtype=np.float64) * 2.0 ** bits) \
+            / 2.0 ** bits
+    K = grid(lp.K.numpy(), 16)
+    m, n = K.shape
+    q = grid(lp.q.numpy(), 16)
+    if per_el:
+        q = q[None, :] * (1.0 + rng.integers(0, 8, (B, n)) / 64.0)
+    lb = np.where(np.isfinite(lp.lb.numpy()), grid(lp.lb.numpy(), 16), -1e30)
+    ub = np.where(np.isfinite(lp.ub.numpy()), grid(lp.ub.numpy(), 16), 1e30)
+    step = 2.0 ** math.floor(math.log2(0.7 / np.linalg.norm(K, 2)))
+    tau = step * (1.0 + rng.integers(0, 4, B) / 16.0)
+    sig = step * (1.0 + rng.integers(0, 4, B) / 16.0)
+    ht = grid(rng.normal(0.0, 1.0, (B, m)), 10)
+    Y = np.clip(grid(rng.uniform(0.0, 1.0, (B, n)), 10), lb, ub)
+    L = grid(rng.normal(0.0, 0.5, (B, m)), 10)
+    kh = rng.integers(0, 200, B).astype(np.float64)
+    Yanc = np.clip(Y + grid(rng.normal(0.0, 0.1, (B, n)), 10), lb, ub)
+    Lanc = L + grid(rng.normal(0.0, 0.1, (B, m)), 10)
+    dt = getattr(torch, dname)
+    dev = torch.device("cuda")
+
+    def t(x, dtype=dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(
+            device=dev, dtype=dtype).contiguous()
+    return (t(K), t(q), t(lb), t(ub), t(lp.is_eq.numpy(), torch.bool),
+            t(ht), t(tau), t(sig), t(Y), t(L), t(kh), t(Yanc), t(Lanc))
+
+
+def _sha(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def tile_digests(scheme):
+    """{case key: [digest of Yout, Lout, Yout2, Lout2, inputs]} of the
+    scheme's tile kernel at every case of _DIGEST_CASES."""
+    import torch
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+
+    out = {}
+    for case in _DIGEST_CASES:
+        if case[0] != scheme:
+            continue
+        _, inst, B, dname, per_el, C = case
+        args = _digest_inputs(inst, B, dname, per_el)[:_PDHG_ARGS[scheme]]
+        kernel = getattr(pk, f"pdhg_{scheme}_round")
+        it = args[0].element_size()
+        res = kernel(*args, 80, plan=("tile", C, pk._TILE_ARITH[it]))
+        torch.cuda.synchronize()
+        out[_digest_key(*case)] = [_sha([r]) for r in res] + [_sha(args)]
+    return out
+
+
+def _hold_tile_digests(phase):
+    """The scheme's tile kernel against TILE_DIGESTS, output by output,
+    bit for bit; raises on any difference (an input digest that differs
+    says the inputs moved, not the kernel)."""
+    scheme = _PDHG_PHASES[phase]
+    got = tile_digests(scheme)
+    bad = []
+    for key, digests in got.items():
+        want = TILE_DIGESTS.get(key)
+        same = want is not None and want == digests
+        log(f"[{phase}] digest {key}: {'bitwise' if same else 'DIFFERS'}"
+            f"{'' if same else f' (got {digests}, want {want})'}")
+        if not same:
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"pdhg_{scheme}_tile differs from its recorded "
+                             f"bits at {bad}")
+
+
+def phase_digests():
+    """Print TILE_DIGESTS for the kernels of this tree, both schemes."""
+    got = {}
+    for scheme in ("halpern", "average"):
+        got.update(tile_digests(scheme))
+    log("[digests] " + json.dumps(got))
 
 
 def _set_bound(entry, bound):
@@ -611,6 +856,12 @@ def _sweep_round(scheme, inst, B, dtype):
                   if R <= B and pk._cluster_fits(C, R, m, n, it, scheme)]
     plans += [("tile", C, pk._TILE_ARITH[it]) for C in pk._CLUSTER_SIZES
               if pk._tile_fits(C, m, n, it, pk._TILE_ARITH[it])]
+    tile = pk._tile_shape(B, m, n, it, scheme)
+    if tile is not None and it == 4:
+        # the float32 tile height at the plan's cluster size
+        own = pk._tile_rows(B, tile[0], m, n, it, scheme)
+        plans += [("tile",) + tile + (tm,) for tm in (16, 12, 8, 4, 2)
+                  if tm != own and tm <= -(-B // 2)]
     plans += [("stream", C, pk._STREAM_TM) for C in pk._STREAM_SIZES
               if pk._stream_fits(C, pk._STREAM_TM, m, n, it)]
     chosen = pk._plan(B, m, n, it, scheme)
@@ -636,6 +887,10 @@ def _sweep_round(scheme, inst, B, dtype):
         ms = device_ms(lambda: kernel(*args, n_inner, plan=plan), reps)
         passes = pk._tile_passes(B, plan[1], m, n, it, scheme) \
             if plan[0] == "tile" else None
+        if plan[0] == "tile":       # tiles of tm rows in turn
+            tm = plan[3] if len(plan) == 4 else pk._tile_rows(
+                B, plan[1], m, n, it, scheme)
+            passes = f"{-(-(-(-B // tm)) // occ)} tm={tm}"
         if plan[0] == "stream":     # waves of one tile per cluster
             passes = -(-(-(-B // pk._STREAM_TM)) // occ)
         log(f"{tag}: kernel_ms={ms:.4f} max_rel_err={err:.2e} "
@@ -2566,6 +2821,8 @@ def run_phase(ph, args, results, memo):
         phase_b3(results)
     elif ph == "sweep":
         phase_sweep()
+    elif ph == "digests":
+        phase_digests()
     elif ph == "profile":
         phase_profile("main", 100)
         phase_profile("replicated", 20)

@@ -12,9 +12,14 @@
 // (about 79 GB per 80-step round at ssn B = 4096), and its products are
 // scalar FMAs. The TPU kernel kept K in VMEM and ran the products on the
 // matrix unit as three bf16 passes; pdhg_tile.cuh keeps K's column slices
-// in a cluster's shared memory, carries 16 rows per tile and runs
-// the products as FP64 mma.sync instructions in float64 and as FP32 FMAs
-// in float32, and says how. This file instantiates it for the Halpern
+// in a cluster's shared memory and runs the products as FP64 mma.sync
+// instructions on tiles of 16 rows in float64 and as FP32 FMAs in
+// float32, each lane holding R rows by 4 outputs in registers, on tiles
+// as short as the panel's passes allow. What bounds it now: FMA-loop
+// instruction issue in float32 (a product about 4.8 us of a 16-row
+// step's 13.5 at ssn), the FP64 matrix instructions and the dual update in
+// float64, and in both the step's two cluster barriers; that header says
+// how each cost was measured. This file instantiates it for the Halpern
 // scheme.
 
 #include "pdhg_tile.cuh"
@@ -24,7 +29,7 @@ namespace {
 using pdhg_tile::Args;
 
 template <typename T>
-int run(int C, int nclusters, const void* K, const void* q,
+int run(int C, int nclusters, int tm, const void* K, const void* q,
         int q_per_row, const void* lb, const void* ub, const void* is_eq,
         const void* ht, const void* tau, const void* sig, const void* Y,
         const void* L, const void* kh, const void* Yanc, const void* Lanc,
@@ -33,16 +38,17 @@ int run(int C, int nclusters, const void* K, const void* q,
   const Args a = {K,   q,  q_per_row, lb,   ub,   is_eq, ht,   tau,
                   sig, Y,  L,         kh,   Yanc, Lanc,  Yout, Lout,
                   Ycand, Lcand, B,    m,    n,    n_inner, stream};
-  return pdhg_tile::launch<T, false>(C, nclusters, a, nullptr);
+  return pdhg_tile::launch<T, false>(C, nclusters, tm, a, nullptr);
 }
 
 }  // namespace
 
 extern "C" {
 
-// one round on nclusters persistent clusters of C CTAs; returns
-// cudaError_t
-int pdhg_halpern_tile_f32(int C, int nclusters, const void* K,
+// one round on nclusters persistent clusters of C CTAs walking tiles of
+// tm rows (float64: 16); returns cudaError_t
+int pdhg_halpern_tile_f32(int C, int nclusters, int tm,
+                          const void* K,
                           const void* q, int q_per_row, const void* lb,
                           const void* ub, const void* is_eq, const void* ht,
                           const void* tau, const void* sig, const void* Y,
@@ -50,12 +56,13 @@ int pdhg_halpern_tile_f32(int C, int nclusters, const void* K,
                           const void* Lanc, void* Yout, void* Lout,
                           void* Ycand, void* Lcand, int B, int m, int n,
                           int n_inner, void* stream) {
-  return run<float>(C, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
+  return run<float>(C, nclusters, tm, K, q, q_per_row, lb, ub, is_eq, ht,
                     tau, sig, Y, L, kh, Yanc, Lanc, Yout, Lout, Ycand, Lcand,
                     B, m, n, n_inner, stream);
 }
 
-int pdhg_halpern_tile_f64(int C, int nclusters, const void* K,
+int pdhg_halpern_tile_f64(int C, int nclusters, int tm,
+                          const void* K,
                           const void* q, int q_per_row, const void* lb,
                           const void* ub, const void* is_eq, const void* ht,
                           const void* tau, const void* sig, const void* Y,
@@ -63,7 +70,7 @@ int pdhg_halpern_tile_f64(int C, int nclusters, const void* K,
                           const void* Lanc, void* Yout, void* Lout,
                           void* Ycand, void* Lcand, int B, int m, int n,
                           int n_inner, void* stream) {
-  return run<double>(C, nclusters, K, q, q_per_row, lb, ub, is_eq, ht,
+  return run<double>(C, nclusters, tm, K, q, q_per_row, lb, ub, is_eq, ht,
                      tau, sig, Y, L, kh, Yanc, Lanc, Yout, Lout, Ycand,
                      Lcand, B, m, n, n_inner, stream);
 }

@@ -48,10 +48,10 @@ _AVERAGE = [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_P]
 _SIGNATURES = {
     "pdhg_halpern_round": [_I] + _HALPERN,
     "pdhg_halpern_cluster": [_I] * 2 + _HALPERN,
-    "pdhg_halpern_tile": [_I] * 2 + _HALPERN,
+    "pdhg_halpern_tile": [_I] * 3 + _HALPERN,
     "pdhg_average_round": [_I] + _AVERAGE,
     "pdhg_average_cluster": [_I] * 2 + _AVERAGE,
-    "pdhg_average_tile": [_I] * 2 + _AVERAGE,
+    "pdhg_average_tile": [_I] * 3 + _AVERAGE,
     "pdhg_halpern_stream": [_I] * 3 + _HALPERN,
     "pdhg_average_stream": [_I] * 3 + _AVERAGE,
     "admm_round": [_I] + [_P] * 13 + [_I] * 4 + [_D, _D, _P],

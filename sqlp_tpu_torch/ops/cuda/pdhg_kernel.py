@@ -20,10 +20,11 @@ and the card's cluster occupancy:
   a cluster of C CTAs, R batch rows per cluster, scalar FMAs;
 - ``("tile", C, arith)``: ``pdhg_{halpern,average}_tile.cu`` (both from
   ``pdhg_tile.cuh``), large panels; K resident in persistent clusters of C
-  CTAs that walk tiles of 16 rows. ``arith`` names how the products are
+  CTAs that walk tiles of at most 16 rows (:func:`_tile_rows`; a fourth
+  element forces the height). ``arith`` names how the products are
   computed, one way per dtype (``_TILE_ARITH``): ``"mma"`` in float64
-  (FP64 matrix instructions), ``"fma"`` in float32 (FP32 FMAs on the same
-  tiles, summed in blocks of 8 k);
+  (FP64 matrix instructions on 16-row tiles), ``"fma"`` in float32 (FP32
+  FMAs summed in blocks of 8 k, the float64 instruction's order);
 - ``("stream", C, TM)``: ``pdhg_{halpern,average}_stream.cu`` (both from
   ``pdhg_stream.cuh``), a K whose slices fit no cluster (storm): K streamed
   from L2 through shared memory every step for tiles of TM = 16 rows on a
@@ -95,7 +96,7 @@ _CLUSTER_MAX_ROWS_VS_TILE = 2       # against the tile kernel, in one wave
 _CLUSTER_MAX_WAVES_VS_STREAM = 12   # against the stream kernel
 _CLUSTER_WARPS = 16
 _CLUSTER_REGS = 108                 # 32-bit registers of the lane arrays
-_TILE_ROWS = 16                     # batch rows of a tile
+_TILE_ROWS = 16                     # batch rows a tile holds at most
 # the tile kernels' arithmetic, by itemsize (csrc/pdhg_tile.cuh)
 _TILE_ARITH = {4: "fma", 8: "mma"}
 _SCHEMES = ("halpern", "average")
@@ -206,18 +207,32 @@ def _cluster_shape(B: int, m: int, n: int, itemsize: int,
 
 def _tile_smem(C: int, m: int, n: int, itemsize: int) -> int:
     """Shared memory of one CTA of a tile kernel, in bytes (mirrors
-    csrc/pdhg_tile.cuh:layout; the same under either scheme): the column
-    slice of K in whole 8 x 8 blocks, the tile's full L and its reflected
-    Yb as the products read them, the [C, TM, mc] exchange buffer, two
+    csrc/pdhg_tile.cuh:layout; the same under either scheme and at any
+    tile height): the column slice of K in whole 8 x 8 blocks (float32 at
+    padded strides, :func:`_tile_k_stride`), the tile's full L and its
+    reflected Yb as the products read them (float32 row-major at a row
+    stride 4 elements past the padded width, float64 in
+    matrix-instruction blocks), the [C, TM, mc] exchange buffer, two
     [TM, nc] vectors, two [TM, mc] vectors, bounds, q and row scalars."""
     TM = _TILE_ROWS
     nc = -(-n // C)
     ncp = -(-nc // 8) * 8
     mp = -(-m // 8) * 8
     mc = -(-(mp // 8) // C) * 8
-    return (ncp * mp + TM * mp + C * TM * mc + TM * ncp
+    pad = 4 if itemsize == 4 else 0
+    return (ncp // 8 * _tile_k_stride(mp // 8, itemsize)
+            + TM * (mp + pad) + C * TM * mc + TM * (ncp + pad)
             + 2 * TM * (ncp + 4) + 2 * TM * mc + 3 * ncp
             + 5 * TM) * itemsize
+
+
+def _tile_k_stride(nit: int, itemsize: int) -> int:
+    """Elements from one column block of a tile CTA's K slice to the next
+    (csrc/pdhg_tile.cuh:layout, sj): nit 8 x 8 blocks, in float32 each
+    padded to 72 elements and the column block to 16 mod 32 elements."""
+    if itemsize == 8:
+        return nit * 64
+    return nit * 72 + (16 - nit * 72 % 32) % 32
 
 
 def _tile_fits(C: int, m: int, n: int, itemsize: int, arith: str) -> bool:
@@ -238,9 +253,23 @@ def _tile_clusters_per_wave(C: int, m: int, n: int, itemsize: int,
 
 def _tile_passes(B: int, C: int, m: int, n: int, itemsize: int,
                  scheme: str = "halpern") -> int:
-    """Tiles the busiest cluster walks for a [B] panel."""
+    """Tiles the busiest cluster walks for a [B] panel (the same at the
+    tile height :func:`_tile_rows` picks as at 16 rows)."""
     per_wave = _tile_clusters_per_wave(C, m, n, itemsize, scheme)
     return -(-(-(-B // _TILE_ROWS)) // per_wave)
+
+
+def _tile_rows(B: int, C: int, m: int, n: int, itemsize: int,
+               scheme: str = "halpern") -> int:
+    """Batch rows of a tile for a [B] panel: 16 in float64 (the matrix
+    instruction's tile); in float32 the fewest that keep the passes of
+    16-row tiles, so the tiles spread over every cluster the card runs (a
+    float32 row's sums do not depend on the rows beside it)."""
+    if itemsize == 8:
+        return _TILE_ROWS
+    per_wave = _tile_clusters_per_wave(C, m, n, itemsize, scheme)
+    passes = _tile_passes(B, C, m, n, itemsize, scheme)
+    return -(-B // (per_wave * passes))
 
 
 def _tile_shape(B: int, m: int, n: int, itemsize: int,
@@ -527,7 +556,8 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
     name = f"pdhg_{scheme}_round"
     if not (isinstance(plan, tuple) and plan
             and plan[0] in ("rows", "cluster", "tile", "stream")
-            and len(plan) == (2 if plan[0] == "rows" else 3)):
+            and len(plan) in ((2,) if plan[0] == "rows" else
+                              (3, 4) if plan[0] == "tile" else (3,))):
         raise ValueError(f"{name}: unknown plan {plan!r}")
     it = K.element_size()
     if plan[0] == "rows":
@@ -545,15 +575,20 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
         stem, head = f"pdhg_{scheme}_stream", (C, TM, ldk)
         operands = (Kp,) + tuple(operands[1:])
     else:
-        C, arith = plan[1:]
-        if not _tile_fits(C, m, n, it, arith):
+        C, arith = plan[1:3]
+        tm = plan[3] if len(plan) == 4 else None
+        if not (_tile_fits(C, m, n, it, arith) and (
+                tm is None or isinstance(tm, int) and (
+                    tm == _TILE_ROWS or it == 4 and 1 <= tm < _TILE_ROWS))):
             raise ValueError(f"{name}: no tile kernel for {plan!r} at "
                              f"m={m} n={n} itemsize={it}")
         per_wave = _tile_clusters_per_wave(C, m, n, it, scheme)
         if per_wave <= 0:
             raise ValueError(f"{name}: the card cannot schedule {plan!r}")
+        if tm is None:
+            tm = _tile_rows(B, C, m, n, it, scheme)
         stem = f"pdhg_{scheme}_tile"
-        head = (C, min(-(-B // _TILE_ROWS), per_wave))
+        head = (C, min(-(-B // tm), per_wave), tm)
     fn = getattr(build.load(), f"{stem}_f64" if it == 8 else f"{stem}_f32")
     stream = torch.cuda.current_stream(K.device).cuda_stream
     with torch.cuda.device(K.device):

@@ -134,7 +134,8 @@ def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, variant,
     ("ssn", 1, "cluster"), ("ssn", 16, "cluster"), ("ssn", 100, "cluster"),
     ("ssn", 256, "tile"), ("ssn", 512, "tile"), ("ssn", 768, "tile"),
     ("ssn", 1024, "tile"), ("ssn", 100, ("tile", 4)),
-    ("lands", 40, ("tile", 8)), ("lands", 40, ("tile", 16))])
+    ("lands", 40, ("tile", 8)), ("lands", 40, ("tile", 16)),
+    ("ssn", 700, "tile"), ("ssn", 8192, "tile")])
 @pytest.mark.parametrize("scheme", ["halpern", "average"])
 def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, name, B,
                                                    variant, per_el_q, dtype,
@@ -170,6 +171,48 @@ def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, name, B,
     for o, r in zip(out, ref):
         scale = 1.0 + float(r.abs().max())
         assert float((o - r).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+@pytest.mark.parametrize("B,per_el_q", [(100, True), (256, False),
+                                        (700, False)])
+def test_short_float32_tiles_are_the_16_row_tiles_bit_for_bit(
+        cuda, scheme, B, per_el_q):
+    """A float32 row's sums do not depend on the rows beside it, so tiles
+    of any height from 1 to 16 rows (the plan's own, a ragged last tile,
+    one row) give the 16-row tiles' outputs bit for bit."""
+    args = _round_args("ssn", B, torch.float32, cuda, per_el_q)
+    if scheme == "average":
+        args = args[:10]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    full = kernel(*args, 80, plan=("tile", 4, "fma", 16))
+    for tm in (1, 3, 9, 12, 15, None):
+        plan = ("tile", 4, "fma") + (() if tm is None else (tm,))
+        out = kernel(*args, 80, plan=plan)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, o) for a, o in zip(full, out)), plan
+
+
+@pytest.mark.parametrize("key", [
+    "halpern ssn B=256 float32 q=shared C=4",
+    "average ssn B=700 float32 q=shared C=4",
+    "halpern ssn B=256 float64 q=shared C=8"])
+def test_tile_kernel_reproduces_the_recorded_digests(cuda, key):
+    """The tile kernel's outputs at chip_smoke.py's fixed inputs have the
+    SHA-256 digests recorded there from the first tile design (chip_smoke.py's b1
+    and b2 hold every recorded case)."""
+    import chip_smoke
+    case = next(c for c in chip_smoke._DIGEST_CASES
+                if chip_smoke._digest_key(*c) == key)
+    scheme, inst, B, dname, per_el, C = case
+    args = chip_smoke._digest_inputs(inst, B, dname, per_el)
+    args = args[:chip_smoke._PDHG_ARGS[scheme]]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    arith = pdhg_kernel._TILE_ARITH[args[0].element_size()]
+    out = kernel(*args, 80, plan=("tile", C, arith))
+    torch.cuda.synchronize()
+    got = [chip_smoke._sha([o]) for o in out] + [chip_smoke._sha(args)]
+    assert got == chip_smoke.TILE_DIGESTS[key]
 
 
 def test_tile_kernel_keeps_nan(cuda):

@@ -180,8 +180,18 @@ def _tile_smem_by_region(C, m, n, itemsize):
     ncp = (nc + 7) // 8 * 8
     mp = (m + 7) // 8 * 8
     mc = (mp // 8 + C - 1) // C * 8
+    # float32 keeps L and Yb row-major, each row 4 elements past its
+    # padded width (a row stride of 4 mod 8: conflict-free 16-byte loads)
+    pad = 4 if itemsize == 4 else 0
+    # K's 8 x 8 blocks: float32 pads each to 72 elements and a column of
+    # blocks to 16 mod 32 (the 16-byte words a quarter warp reads from
+    # neighbouring units' blocks fall in distinct banks)
+    nit = mp // 8
+    sj = nit * 64 if itemsize == 8 else nit * 72 + (16 - nit * 72 % 32) % 32
+    assert itemsize == 8 or sj % 32 == 16
     regions = {
-        "Ks": ncp * mp, "Lf": TM * mp, "Rx": C * TM * mc, "Yb": TM * ncp,
+        "Ks": ncp // 8 * sj, "Lf": TM * (mp + pad), "Rx": C * TM * mc,
+        "Yb": TM * (ncp + pad),
         "Yc": TM * (ncp + 4), "Ya": TM * (ncp + 4), "La": TM * mc,
         "hs": TM * mc, "lbs": ncp, "ubs": ncp, "qs": ncp, "rows": 5 * TM}
     assert all(v % 4 == 0 for v in regions.values())   # 16-byte loads
@@ -256,15 +266,29 @@ def test_plan_refuses_an_unknown_scheme():
 @pytest.mark.parametrize("plan", [("tile", 1, "tf32x3"), ("tile", 1, "fma"),
                                   ("tile", 4, "mma"), ("tile", 4, "bf16x3"),
                                   ("tile", 4, 16), ("tile", 6, "tf32x6"),
-                                  ("tile", 4, "dmma"), ("tile", 3, "fma")])
+                                  ("tile", 4, "dmma"), ("tile", 3, "fma"),
+                                  ("tile", 4, "fma", 0),
+                                  ("tile", 4, "fma", 17),
+                                  ("tile", 4, "fma", 8.0),
+                                  ("tile", 4, "fma", 16.0),
+                                  ("tile", 1, "fma", 8)])
 def test_launch_refuses_a_tile_plan_the_kernel_does_not_take(plan):
-    """A forced tile plan whose footprint misses a CTA's shared memory, or
-    whose arithmetic the dtype does not have, raises at the wrapper, before
-    the card is asked."""
+    """A forced tile plan whose footprint misses a CTA's shared memory,
+    whose arithmetic the dtype does not have, or whose tile height is not
+    1 to 16 rows, raises at the wrapper, before the card is asked."""
     K = torch.zeros((175, 706))
     with pytest.raises(ValueError, match="no tile kernel"):
         pdhg_kernel._launch("halpern", plan, K, (), 64, 175, 706, 80)
 
+
+@pytest.mark.parametrize("tm", [1, 8, 15, 17])
+def test_launch_refuses_a_float64_tile_shorter_than_16_rows(tm):
+    """float64 tiles are the matrix instruction's 16 rows: a forced plan of
+    another height raises at the wrapper, before the card is asked."""
+    K = torch.zeros((175, 706), dtype=torch.float64)
+    with pytest.raises(ValueError, match="no tile kernel"):
+        pdhg_kernel._launch("average", ("tile", 8, "mma", tm), K, (), 64,
+                            175, 706, 80)
 
 def test_tile_shape_per_arithmetic(h100):
     """_tile_shape names the dtype's own arithmetic: ssn's MC panel on 30
@@ -295,6 +319,50 @@ def test_tile_passes_on_the_ladder(h100, B, passes):
     assert C == max(c for c in sizes
                     if pdhg_kernel._tile_passes(B, c, m, n, 4) == fewest)
     assert C == 4
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+@pytest.mark.parametrize("B", [256, 512, 700, 768, 1024, 4096, 8000, 8192,
+                               16000, 16384, 48000])
+def test_tile_plan_keeps_the_cluster_size_per_dtype(h100, scheme, B):
+    """The cluster size sets the column split and the order in which the
+    owner sums the C shares, so it sets the bits: the redesigned tile kernel
+    keeps the first design's footprint class, and the plan keeps its sizes, 4 CTAs in
+    float32 and 8 in float64 at every panel of ssn's ladder and polish
+    routes (every 16-row pass count unchanged), none for storm."""
+    m, n = _shape("ssn")
+    assert pdhg_kernel._tile_shape(B, m, n, 4, scheme) == (4, F32)
+    assert pdhg_kernel._tile_shape(B, m, n, 8, scheme) == (8, "mma")
+    assert pdhg_kernel._tile_shape(B, *_shape("storm"), 4, scheme) is None
+    for itemsize, C in ((4, 4), (8, 8)):
+        per_wave = H100_CLUSTERS_PER_WAVE[C]
+        assert pdhg_kernel._tile_passes(B, C, m, n, itemsize, scheme) \
+            == -(-(-(-B // 16)) // per_wave)
+
+
+# ssn's float32 panels on 30 clusters of 4: (B, tile rows); the 16-row
+# passes stay (256: 1, 512 and 768: 2, 1024: 3, 4096: 9, 8192: 18)
+_SSN_TILE_ROWS = ((1, 1), (100, 4), (256, 9), (512, 9), (700, 12),
+                  (768, 13), (1024, 12), (4096, 16), (8192, 16),
+                  (16384, 16), (48000, 16))
+
+
+@pytest.mark.parametrize("B,tm", _SSN_TILE_ROWS)
+def test_tile_rows_spread_a_panel_over_the_card(h100, B, tm):
+    """float32 tiles are as short as the 16-row passes allow: the tiles of
+    tm rows cover the panel in the same passes on the clusters the card
+    runs at once, and one row fewer would take another pass; float64 keeps
+    16 rows."""
+    m, n = _shape("ssn")
+    for scheme in ("halpern", "average"):
+        assert pdhg_kernel._tile_rows(B, 4, m, n, 4, scheme) == tm
+        assert pdhg_kernel._tile_rows(B, 8, m, n, 8, scheme) == 16
+    passes = pdhg_kernel._tile_passes(B, 4, m, n, 4)
+    per_wave = H100_CLUSTERS_PER_WAVE[4]
+    assert 1 <= tm <= 16
+    assert -(-(-(-B // tm)) // per_wave) == passes
+    if tm > 1:
+        assert -(-(-(-B // (tm - 1))) // per_wave) > passes
 
 
 # (mA, nz) of the SD masters at K = 96 cuts: ssn, storm, and lands'
