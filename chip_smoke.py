@@ -13,9 +13,9 @@
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
-variant of both PDHG rounds, row-block, cluster, tile and stream,
-wherever the variant takes the shape; the float32 stream round also to
-the row-block round's bits, and the tile rounds of both dtypes to the
+variant of both PDHG rounds, row-block, cluster, tile, stream and grid,
+wherever the variant takes the shape; the float32 stream and grid rounds
+also to the row-block round's bits, and the tile rounds of both dtypes to the
 bits the first tile design gave at fixed inputs, TILE_DIGESTS), and
 drives five paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
@@ -29,9 +29,11 @@ average scheme), and the storm path (`storm`: the reference bench's
 storm_time_to_gap, SD on storm in float32 from the projected x0 = 0 and
 its 8192-sample stratified MC bound, held to a band around the
 literature optimum; then 30 float64 iterations and a 4096-row panel; its
-large panels, and every float64 one, on the stream kernels; then 10
+float32 panels from 85 rows on the grid kernels, every float64 one on the
+stream kernels (the average round's up to 256 rows); then 10
 float64 iterations under the average scheme, whose SD panel is the path of
-B2's stream kernel). The main
+B2's stream kernel, and 10 float32 ones with a 1024-sample bound, the
+path of B2's grid kernel). The main
 and the replicated path also hold the tile
 kernel's float32 products (FP32 FMAs in the tile kernel's order) to a
 gate over whole solves: the same 4096-row panels, at the same x over
@@ -294,9 +296,10 @@ _PDHG_PHASES = {"b1": "halpern", "b2": "average"}
 _PDHG_ARGS = {"halpern": 13, "average": 10}
 # the paths' rungs (the SD panels of 2 and 16 rows, the MC ladder 4096,
 # 1024, 768, 512, 256), storm's (the storm path's SD panel of 2 rows and
-# its ladder 4096, 1024, 256; 16 and a ragged tile of 100), lands and
-# per-element q (a ragged tile too); (lands, 2) is the mesh phase's SD
-# panel, on the row-block kernel in f64
+# its ladder 4096, 1024, 256; 16 and a ragged tile of 100; a ragged 1000
+# with per-element q, a ragged last part and tile of the grid kernel),
+# lands and per-element q (a ragged tile too); (lands, 2) is the mesh
+# phase's SD panel, on the row-block kernel in f64
 _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
                ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 256, False), ("ssn", 512, False),
@@ -305,6 +308,7 @@ _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
                ("storm", 2, False), ("storm", 16, False),
                ("storm", 100, False), ("storm", 256, False),
                ("storm", 1024, False), ("storm", 4096, False),
+               ("storm", 1000, True),
                ("ssn", 2, True), ("ssn", 100, True))
 # the polish routes' float32 panels, Halpern only: the decision polish's
 # 8192 rows, the level bundle's 8 x CERT_FRESH (round 1) and 8 x 2 x
@@ -312,26 +316,33 @@ _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
 _POLISH_CASES = (("ssn", 8000, False), ("ssn", 8192, False),
                  ("ssn", 16000, False), ("ssn", 16384, False))
 # a variant's entry in the kernels line: the wrapper's counter and the
-# shape its time is reported at (the path's own: the SD panel of the main
-# path is 2 rows, of the replicated path 16, the MC panel 4096; the
-# row-block kernels keep lands on the small path; the stream kernels
-# storm's 256-row float32 rung)
+# shape and dtype its time is reported at (the path's own: the SD panel of
+# the main path is 2 rows, of the replicated path 16, the MC panel 4096;
+# the row-block kernels keep lands on the small path; the stream kernels
+# storm's float64 panels, 256 rows of the Halpern legs and the average
+# leg's SD panel of 2; the grid kernels storm's 4096-row float32 rung)
 _PDHG_ENTRY = {
-    ("halpern", "rows"): ("pdhg_halpern_round", "lands", 8),
-    ("halpern", "cluster"): ("pdhg_halpern_cluster", "ssn", 2),
-    ("halpern", "tile"): ("pdhg_halpern_tile", "ssn", 4096),
-    ("halpern", "stream"): ("pdhg_halpern_stream", "storm", 256),
-    ("average", "rows"): ("pdhg_average_round", "lands", 8),
-    ("average", "cluster"): ("pdhg_average_cluster", "ssn", 16),
-    ("average", "tile"): ("pdhg_average_tile", "ssn", 4096),
-    ("average", "stream"): ("pdhg_average_stream", "storm", 256),
+    ("halpern", "rows"): ("pdhg_halpern_round", "lands", 8, "float32"),
+    ("halpern", "cluster"): ("pdhg_halpern_cluster", "ssn", 2, "float32"),
+    ("halpern", "tile"): ("pdhg_halpern_tile", "ssn", 4096, "float32"),
+    ("halpern", "stream"): ("pdhg_halpern_stream", "storm", 256, "float64"),
+    ("halpern", "grid"): ("pdhg_halpern_grid", "storm", 4096, "float32"),
+    ("average", "rows"): ("pdhg_average_round", "lands", 8, "float32"),
+    ("average", "cluster"): ("pdhg_average_cluster", "ssn", 16, "float32"),
+    ("average", "tile"): ("pdhg_average_tile", "ssn", 4096, "float32"),
+    ("average", "stream"): ("pdhg_average_stream", "storm", 2, "float64"),
+    ("average", "grid"): ("pdhg_average_grid", "storm", 4096, "float32"),
 }
+# the variants admitted on float32 panels only while they are the
+# row-block round's bits, and the dtypes each is admitted for
+_ROWBLOCK_BITS = {"stream": "_STREAM_ITEMSIZES", "grid": "_GRID_ITEMSIZES"}
 
 
 def _variants(args, scheme):
     """A round's variants to check at these operands: the plan's first,
-    then the row-block kernel and the cluster and tile kernels wherever
-    they take the shape."""
+    then the row-block kernel and the cluster, tile, stream and grid
+    kernels wherever they take the shape (the grid kernel: float32 panels
+    of a K that no tile shape takes)."""
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     m, n = args[0].shape
     B = args[5].shape[0]
@@ -342,9 +353,12 @@ def _variants(args, scheme):
     shape = pk._cluster_shape(B, m, n, it, scheme)
     tile = pk._tile_shape(B, m, n, it, scheme)
     stream = pk._stream_shape(B, m, n, it, scheme) if tile is None else None
+    grid = pk._grid_shape(B, m, n, it) if tile is None \
+        and m * n * it >= pk._CLUSTER_MIN_K_BYTES else None
     for alt in (rows, ("cluster",) + shape if shape else None,
                 ("tile",) + tile if tile else None,
-                ("stream",) + stream if stream else None):
+                ("stream",) + stream if stream else None,
+                ("grid",) + grid if grid else None):
         if alt is not None and alt not in out:
             out.append(alt)
     return out
@@ -356,10 +370,11 @@ def phase_pdhg(results, phase):
     storm, lands and per-element q (a ragged tile too), and the Halpern
     round in f32 at the polish routes' panels (8000 to 16,384 rows): every
     variant the shape admits, timed in the same call, two launches bitwise
-    equal. The float32 stream variant is also held to the row-block
-    kernel's bits: where the plan admits it (rule (a) of its admission,
-    pdhg_kernel._STREAM_ITEMSIZES), a difference fails the phase. Last,
-    the scheme's tile kernel against TILE_DIGESTS, bit for bit."""
+    equal. The float32 stream and grid variants are also held to the
+    row-block kernel's bits: where the plan admits them (rule (a) of their
+    admission, pdhg_kernel._STREAM_ITEMSIZES and _GRID_ITEMSIZES), a
+    difference fails the phase. Last, the scheme's tile kernel against
+    TILE_DIGESTS, bit for bit."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -394,14 +409,15 @@ def phase_pdhg(results, phase):
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, o) for a, o in zip(again, out))
                 bits = ""
-                if plan[0] == "stream" and dname == "float32":
+                if plan[0] in _ROWBLOCK_BITS and dname == "float32":
                     rows = kernel(*args, n_inner, plan=variants[[
                         v[0] for v in variants].index("rows")])
                     torch.cuda.synchronize()
                     bitwise = all(torch.equal(a, o)
                                   for a, o in zip(rows, out))
                     bits = f"bitwise_vs_rows={bitwise} "
-                    if not bitwise and 4 in pk._STREAM_ITEMSIZES:
+                    if not bitwise and 4 in getattr(
+                            pk, _ROWBLOCK_BITS[plan[0]]):
                         raise AssertionError(
                             f"{name} {plan} is admitted on float32 panels "
                             f"as the row-block round's bits, but differs "
@@ -436,19 +452,19 @@ def phase_pdhg(results, phase):
                     raise AssertionError(f"{name} {plan} disagrees with its "
                                          f"plain version on {inst} B={B} "
                                          f"{dname}")
-                key, at_inst, at_B = _PDHG_ENTRY[scheme, plan[0]]
+                key, *at = _PDHG_ENTRY[scheme, plan[0]]
                 worst[key] = max(worst.get(key, 0.0), abs_err)
                 took[plan[0]] = ms
-                if dname == "float32" and not per_el \
-                        and (inst, B) == (at_inst, at_B):
+                if not per_el and [inst, B, dname] == at:
                     results[key].update(
                         ms=ms, call_ms=call, plain_ms=plain_ms,
-                        plan=list(plan), shape=f"{inst} B={B} f32")
+                        plan=list(plan),
+                        shape=f"{inst} B={B} f{8 * args[0].element_size()}")
                     _set_bound(results[key], bound)
             for kind in took:
-                key, at_inst, at_B = _PDHG_ENTRY[scheme, kind]
-                if kind != "rows" and dname == "float32" \
-                        and not per_el and (inst, B) == (at_inst, at_B):
+                key, *at = _PDHG_ENTRY[scheme, kind]
+                if kind != "rows" and not per_el \
+                        and [inst, B, dname] == at:
                     # the row-block kernel's time at the shape the entry
                     # reports
                     results[key]["rowblock_ms"] = took["rows"]
@@ -864,6 +880,10 @@ def _sweep_round(scheme, inst, B, dtype):
                   if tm != own and tm <= -(-B // 2)]
     plans += [("stream", C, pk._STREAM_TM) for C in pk._STREAM_SIZES
               if pk._stream_fits(C, pk._STREAM_TM, m, n, it)]
+    if tile is None and m * n * it >= pk._CLUSTER_MIN_K_BYTES:
+        # primal tile heights, the panel in 1, 2 and 4 parts
+        plans += [("grid", BM, P) for BM in pk._GRID_BM for P in (1, 2, 4)
+                  if pk._grid_fits(BM, it, P) and (P - 1) * 128 < B]
     chosen = pk._plan(B, m, n, it, scheme)
     ref = getattr(pk, name + "_ref")(*args, n_inner)
     reps = 3 if B >= 1024 else 10
@@ -907,7 +927,8 @@ def phase_sweep():
     decide between (one call, one card): both PDHG rounds' row-block
     kernels against their cluster kernels (cluster sizes, rows per
     cluster), tile kernels (cluster sizes) and, for storm, stream kernels
-    (cluster sizes), and B3 over cluster sizes."""
+    (cluster sizes) and, in float32, grid kernels (primal tile heights,
+    parts), and B3 over cluster sizes."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
@@ -917,8 +938,10 @@ def phase_sweep():
              (f32, f64)),
             ("average", "ssn", (16, 64, 256, 512, 768, 1024, 4096),
              (f32, f64)),
-            ("halpern", "storm", (2, 16, 64, 256, 1024, 4096), (f32, f64)),
-            ("average", "storm", (2, 16, 64, 256, 1024, 4096), (f32, f64))):
+            ("halpern", "storm", (2, 16, 64, 100, 256, 1024, 4096),
+             (f32, f64)),
+            ("average", "storm", (2, 16, 64, 100, 256, 1024, 4096),
+             (f32, f64))):
         for dtype in dtypes:
             for B in sizes:
                 _sweep_round(scheme, inst, B, dtype)
@@ -1010,9 +1033,11 @@ def phase_main(results, iters, gate=False, path="main"):
 # upper limit is 2 % above it
 STORM_UB = (15_480_000.0, 15_810_000.0)
 STORM_F64_ITERS = 30
-# the f64 leg under scheme="average": its SD panel (2 rows) is the one path
-# of pdhg_average_stream
+# the legs under scheme="average": the f64 leg's SD panel (2 rows) is the
+# one path of pdhg_average_stream, the f32 leg's bound (1024 stratified
+# samples) the one path of pdhg_average_grid
 STORM_AVG_ITERS = 10
+STORM_AVG_SAMPLES = 1024
 STORM_MORE_ITERS = 100      # added per look while mc_ub is above the band
 # seconds the storm phase may spend on such looks: the default script takes
 # 1116-1152 s of its 1200 s limit on the H100 (PERF.md), so about one look
@@ -1043,10 +1068,14 @@ def phase_storm(results, iters):
     fits in STORM_EXTRA_S seconds, STORM_MORE_ITERS more iterations and a
     new bound (the gate fails on the last mc_ub when they are spent). f64:
     STORM_F64_ITERS iterations and one 4096-row stratified panel; then
-    STORM_AVG_ITERS f64 iterations under scheme="average". Gates: both
-    stream kernels launched on the path, no row-block average round,
-    every number finite, the f32 mc_ub within STORM_UB."""
+    STORM_AVG_ITERS f64 iterations under scheme="average", and as many in
+    f32 with a STORM_AVG_SAMPLES-sample stratified bound. Gates: both
+    stream kernels and both grid kernels launched on the path, no
+    row-block average round, no row-block Halpern round on the f32 leg at
+    a rung the plan gives the grid kernel, every number finite, the f32
+    mc_ub within STORM_UB."""
     import torch
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
     _reset_counts()
     solver = _storm_solver("float32")
@@ -1084,6 +1113,11 @@ def phase_storm(results, iters):
             f"more iterations, {done} in {sd_s:.2f}s: lb_est={lb:.4f} "
             f"mc_ub={ub:.4f} +- {hw:.4f} ({mc_s:.2f}s)")
     f32_rungs = _by_rung()
+    f32_grid = _counts()["pdhg_halpern_grid"]
+    m2, n2 = solver.inst.arrays.W.shape
+    rows_at_grid = {B: v for (c, B, it), v in pk.launches_by_shape.items()
+                    if c == "launches" and it == 4
+                    and pk._plan(B, m2, n2, 4)[0] == "grid"}
     s64 = _storm_solver("float64")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1110,24 +1144,43 @@ def phase_storm(results, iters):
     avg_s = time.perf_counter() - t1
     lb_avg = savg.lower_estimate
     inc_avg = float(last["inc_est"])
-    counts = _counts()
     log(f"[storm] f64 average {STORM_AVG_ITERS} iters in {avg_s:.2f}s "
         f"({time.perf_counter() - t0:.2f}s with the solver's set-up) "
         f"lb_est={lb_avg:.4f} inc_est={inc_avg:.4f} "
         f"host_fallbacks={savg.host_fallback_count}")
+    t0 = time.perf_counter()
+    s32 = _storm_solver("float32", scheme="average")
+    s32.run(STORM_AVG_ITERS)
+    ub_a32, hw_a32, n_a32 = s32.evaluate_ci(
+        min_samples=STORM_AVG_SAMPLES, max_samples=STORM_AVG_SAMPLES, seed=7,
+        sampling="stratified")
+    torch.cuda.synchronize()
+    lb_a32 = s32.lower_estimate
+    counts = _counts()
+    log(f"[storm] f32 average {STORM_AVG_ITERS} iters and a bound in "
+        f"{time.perf_counter() - t0:.2f}s lb_est={lb_a32:.4f} "
+        f"mc_ub={ub_a32:.4f} +- {hw_a32:.4f} (N={n_a32}) "
+        f"host_fallbacks={s32.host_fallback_count}")
     log(f"[storm] launches: {json.dumps(counts)}")
     log(f"[storm] launches by rung (f32 leg): {f32_rungs}")
     log(f"[storm] launches by rung (both Halpern legs): {halpern_rungs}")
     log(f"[storm] launches by rung (all legs): {_by_rung()}")
-    numbers = (lb, ub, hw, lb64, ub64, hw64, lb_avg, inc_avg)
+    numbers = (lb, ub, hw, lb64, ub64, hw64, lb_avg, inc_avg, lb_a32, ub_a32,
+               hw_a32)
     if not all(math.isfinite(v) for v in numbers):
         raise AssertionError(f"storm: non-finite numbers {numbers}")
     _record_launches(results, counts, ("pdhg_halpern_stream",
-                                       "pdhg_average_stream", "admm_round"),
+                                       "pdhg_average_stream",
+                                       "pdhg_halpern_grid",
+                                       "pdhg_average_grid", "admm_round"),
                      "storm")
+    if f32_grid <= 0 or rows_at_grid:
+        raise AssertionError(f"storm's f32 leg: {f32_grid} grid launches, "
+                             f"row-block Halpern rounds at the grid "
+                             f"kernel's rungs {rows_at_grid}: {f32_rungs}")
     if counts["pdhg_average_round"]:
-        raise AssertionError(f"storm's average leg left the stream kernel "
-                             f"for the row-block round: {_by_rung()}")
+        raise AssertionError(f"storm's average legs left the stream and grid "
+                             f"kernels for the row-block round: {_by_rung()}")
     if not STORM_UB[0] <= ub <= STORM_UB[1]:
         raise AssertionError(f"storm mc_ub {ub} after {done} iterations "
                              f"({extra_s:.1f}s of {STORM_EXTRA_S:.0f}s "
@@ -1289,10 +1342,12 @@ _PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
                   "pdhg_halpern_cluster": "cluster_launches",
                   "pdhg_halpern_tile": "tile_launches",
                   "pdhg_halpern_stream": "stream_launches",
+                  "pdhg_halpern_grid": "grid_launches",
                   "pdhg_average_round": "average_launches",
                   "pdhg_average_cluster": "average_cluster_launches",
                   "pdhg_average_tile": "average_tile_launches",
-                  "pdhg_average_stream": "average_stream_launches"}
+                  "pdhg_average_stream": "average_stream_launches",
+                  "pdhg_average_grid": "average_grid_launches"}
 
 
 def _reset_counts():
@@ -2904,10 +2959,12 @@ def main() -> int:
                    ("pdhg_halpern_cluster", halpern),
                    ("pdhg_halpern_tile", halpern),
                    ("pdhg_halpern_stream", halpern),
+                   ("pdhg_halpern_grid", halpern),
                    ("pdhg_average_round", average),
                    ("pdhg_average_cluster", average),
                    ("pdhg_average_tile", average),
                    ("pdhg_average_stream", average),
+                   ("pdhg_average_grid", average),
                    ("admm_round", "sqlp_tpu/ops/pallas/admm_kernel.py:95"))}
     t0 = time.perf_counter()
     pending = []

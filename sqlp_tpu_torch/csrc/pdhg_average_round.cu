@@ -29,6 +29,11 @@
 // all ROWS rows. The two products are B1's (pdhg_common.cuh), so both
 // schemes reduce in the same order. The ragged last block is masked.
 //
+// Where the plan sends it (ops/cuda/pdhg_kernel.py:_plan): a K small enough
+// for L1 (lands), and storm's float64 panels past 256 rows (the stream
+// variant takes them up to 256 rows); storm's float32 panels past the
+// cluster variant's go to the grid variant (pdhg_average_grid.cu).
+//
 // The launch bounds ask for two resident blocks, which caps a thread at 64
 // registers. With the thread count alone ptxas built the f32 one-row
 // instance with 32 registers and a spill, and the round ran 1.8x slower

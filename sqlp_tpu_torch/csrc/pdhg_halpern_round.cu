@@ -33,8 +33,10 @@
 // Where the plan sends it (ops/cuda/pdhg_kernel.py:_plan): a K small enough
 // for L1 (lands), whose products no cluster would speed up, and what no
 // other variant takes. The L2-bound regime above, a K whose slices fit no
-// cluster (storm), goes to the stream variant (pdhg_halpern_stream.cu),
-// which streams K through shared memory for tiles of 16 rows.
+// cluster (storm), goes to the stream variant (pdhg_halpern_stream.cu,
+// K streamed through shared memory for tiles of 16 rows) in float64, and
+// to the grid variant (pdhg_halpern_grid.cu, two launches a step over the
+// whole panel) in float32 past the cluster variant's panels.
 
 #include "pdhg_common.cuh"
 

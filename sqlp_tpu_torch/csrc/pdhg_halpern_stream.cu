@@ -5,9 +5,11 @@
 // Replaces: sqlp_tpu/ops/pallas/pdhg_kernel.py, pdhg_round_pallas_halpern
 // (body _kernel_halpern) where K is too large for the cluster and tile
 // variants (storm, 2.66 MB in f32 and 5.32 MB in f64): storm's f64 panels
-// and its f32 panels past a wave of the cluster kernel. It computes
-// exactly what ops/cuda/pdhg_kernel.py:pdhg_halpern_round_ref computes; in
-// float32 bit for bit what pdhg_halpern_round.cu computes.
+// (its f32 panels past the cluster kernel's go to the grid variant,
+// pdhg_halpern_grid.cu, and come here only while that is not admitted for
+// them). It computes exactly what
+// ops/cuda/pdhg_kernel.py:pdhg_halpern_round_ref computes; in float32 bit
+// for bit what pdhg_halpern_round.cu computes.
 //
 // What bounds the row-block kernel there: a block carries 2 or 4 batch
 // rows and reads K from L2 twice a step for them, so the round sits at the

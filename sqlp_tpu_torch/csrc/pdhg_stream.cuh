@@ -8,9 +8,10 @@
 // Replaces: sqlp_tpu/ops/pallas/pdhg_kernel.py, pdhg_round_pallas_halpern
 // (body _kernel_halpern) and pdhg_round_pallas (body _kernel), in the
 // regime where K is too large for the cluster and tile variants: storm
-// (m 528, n 1259) in float64 at every panel and in float32 past a wave of
-// the cluster kernel. The TPU kernel keeps K resident in VMEM and runs
-// 128-row blocks against it.
+// (m 528, n 1259) in float64 (the average round up to 256 rows); its
+// float32 panels go to the grid variant (pdhg_grid.cuh) and come here
+// only while that is not admitted for them. The TPU kernel keeps K
+// resident in VMEM and runs 128-row blocks against it.
 //
 // What bounds it on this card: K is 2.66 MB in f32 and 5.32 MB in f64,
 // against 227 KB of shared memory a CTA (f64 K does not fit even a 16-CTA

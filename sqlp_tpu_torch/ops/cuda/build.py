@@ -25,11 +25,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("pdhg_halpern_round.cu", "pdhg_halpern_cluster.cu",
             "pdhg_halpern_tile.cu", "pdhg_halpern_stream.cu",
-            "pdhg_average_round.cu", "pdhg_average_cluster.cu",
-            "pdhg_average_tile.cu", "pdhg_average_stream.cu",
+            "pdhg_halpern_grid.cu", "pdhg_average_round.cu",
+            "pdhg_average_cluster.cu", "pdhg_average_tile.cu",
+            "pdhg_average_stream.cu", "pdhg_average_grid.cu",
             "admm_round.cu")
 _HEADERS = ("pdhg_common.cuh", "pdhg_cluster.cuh", "pdhg_tile.cuh",
-            "pdhg_stream.cuh")
+            "pdhg_stream.cuh", "pdhg_grid.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -55,6 +56,11 @@ _SIGNATURES = {
     "pdhg_halpern_stream": [_I] * 3 + _HALPERN,
     "pdhg_average_stream": [_I] * 3 + _AVERAGE,
     "admm_round": [_I] + [_P] * 13 + [_I] * 4 + [_D, _D, _P],
+}
+# float32 only: BM, P, ldk, mK, then Kr and the scratch Ls, Ybr
+_SIGNATURES_F32 = {
+    "pdhg_halpern_grid": [_I] * 4 + [_P] * 3 + _HALPERN,
+    "pdhg_average_grid": [_I] * 4 + [_P] * 3 + _AVERAGE,
 }
 # cudaOccupancyMaxActiveClusters queries: integers, then the int* result
 _OCCUPANCY = {"pdhg_halpern_cluster": 6, "pdhg_average_cluster": 6,
@@ -140,12 +146,18 @@ def load() -> ctypes.CDLL:
                     fn = getattr(lib, f"{stem}_{suffix}")
                     fn.argtypes = args
                     fn.restype = ctypes.c_int
+            for stem, args in _SIGNATURES_F32.items():
+                fn = getattr(lib, f"{stem}_f32")
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
             for stem, n_ints in _OCCUPANCY.items():
                 fn = getattr(lib, f"{stem}_occupancy")
                 fn.argtypes = [_I] * n_ints + [_P]
                 fn.restype = ctypes.c_int
             lib.pdhg_stream_smem.argtypes = [_I] * 4
             lib.pdhg_stream_smem.restype = ctypes.c_longlong
+            lib.pdhg_grid_smem.argtypes = [_I]
+            lib.pdhg_grid_smem.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

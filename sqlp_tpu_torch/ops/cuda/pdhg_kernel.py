@@ -11,7 +11,7 @@ Two rounds, one per restart scheme of ``solve_batch``:
   :106-147, 265-330); plain version :func:`pdhg_average_round_ref` (the
   loop of ``sqlp_tpu/ops/pdhg.py:330-340``).
 
-Each has four kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
+Each has five kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
 the same function, and :func:`_plan` picks one from the shapes, the dtype
 and the card's cluster occupancy:
 
@@ -30,6 +30,12 @@ and the card's cluster occupancy:
   from L2 through shared memory every step for tiles of TM = 16 rows on a
   cluster of C CTAs; float32 in the row-block kernels' order of summation
   (bit for bit theirs), float64 on FP64 matrix instructions;
+- ``("grid", BM, P)``: ``pdhg_{halpern,average}_grid.cu`` (both from
+  ``pdhg_grid.cuh``), float32 panels of such a K too large for the
+  cluster kernel: the iterates stay in device memory and every step is two
+  launches over the whole panel (cut into P parts, at most 4, on streams
+  of their own), primal tiles of BM rows x 128 columns and dual tiles of
+  32 rows x 16 constraints; bit for bit the row-block round;
 - ``("rows", ROWS)``: ``pdhg_{halpern,average}_round.cu``, the row-block
   kernels (K read from L2) for a K small enough for L1, and for what no
   other variant takes.
@@ -63,6 +69,8 @@ average_cluster_launches = 0    # pdhg_average_round, cluster variant
 average_tile_launches = 0       # pdhg_average_round, tile variant
 stream_launches = 0             # pdhg_halpern_round, stream variant
 average_stream_launches = 0     # pdhg_average_round, stream variant
+grid_launches = 0               # pdhg_halpern_round, grid variant
+average_grid_launches = 0       # pdhg_average_round, grid variant
 # the same launches by (counter, B, itemsize): which rung of a path went
 # through which variant
 launches_by_shape = collections.Counter()
@@ -81,19 +89,23 @@ _SMEM_MAX = 227 * 1024  # dynamic shared memory one block may use (sm_90)
 # and 0.82 at R = 4, one pass of the tile kernel 0.61-0.85 ms whatever the
 # rows in it, so the cluster kernel keeps the panels that one wave of
 # clusters of at most 2 rows holds. Where no tile shape fits (storm) the
-# stream variants (csrc/pdhg_stream.cuh) take the panels up to
-# _STREAM_MAX_ROWS past _CLUSTER_MAX_WAVES_VS_STREAM waves of the cluster
-# kernel (storm in float32: 12 waves of clusters of 16 CTAs and one row
-# take what one stream tile takes), and in float64, which fits no
-# cluster, every panel up to _STREAM_MAX_ROWS; where neither fits, the
-# cluster kernel keeps up to 3 waves against the row-block kernel, as
-# measured before the tile kernel existed.
+# grid variants (csrc/pdhg_grid.cuh) take the float32 panels past
+# _CLUSTER_MAX_WAVES_VS_STREAM waves of the cluster kernel (storm: 12 waves
+# of clusters of 16 CTAs and one row, 84 rows; the sweep put the grid
+# kernel ahead of the stream kernel at 100 and 256 rows and of the
+# row-block kernel from 2 rows, and behind the cluster kernel at 64), and
+# the stream variants (csrc/pdhg_stream.cuh) the float64 panels, which fit
+# no cluster, up to _STREAM_MAX_ROWS (float32 ones too while the grid
+# variant is not admitted for them); where none of them fits, the cluster
+# kernel keeps up to 3 waves against the row-block kernel, as measured
+# before the tile kernel existed. The row-block kernel keeps a K that fits
+# L1 (lands) and storm's float64 average round past 256 rows.
 _CLUSTER_MIN_K_BYTES = 128 * 1024
 _CLUSTER_SIZES = (4, 8, 16)         # CTAs per cluster; 16 is non-portable
 _CLUSTER_ROWS = (1, 2, 4, 8)        # batch rows one cluster carries
 _CLUSTER_MAX_WAVES = 3              # against the row-block kernel
 _CLUSTER_MAX_ROWS_VS_TILE = 2       # against the tile kernel, in one wave
-_CLUSTER_MAX_WAVES_VS_STREAM = 12   # against the stream kernel
+_CLUSTER_MAX_WAVES_VS_STREAM = 12   # against the stream and grid kernels
 _CLUSTER_WARPS = 16
 _CLUSTER_REGS = 108                 # 32-bit registers of the lane arrays
 _TILE_ROWS = 16                     # batch rows a tile holds at most
@@ -116,12 +128,28 @@ _STREAM_BAR_BYTES = 32          # an mbarrier of 8 bytes per stage
 # round
 _STREAM_ITEMSIZES = (4, 8)
 # the largest panel, by (itemsize, scheme), the stream kernel takes; the
-# row-block kernel takes larger ones (None: no limit). From the sweep at
-# storm's shapes (PERF.md): from 1024 rows the row-block kernel's 2 or 4
-# rows a block measured faster, except the Halpern round in float64,
-# where a block holds 2 rows to the stream kernel's 16
+# grid kernel (float32) or the row-block kernel takes larger ones (None:
+# no limit). From the sweep at storm's shapes (PERF.md): from 1024 rows
+# the row-block kernel's 2 or 4 rows a block measured faster, except the
+# Halpern round in float64, where a block holds 2 rows to the stream
+# kernel's 16
 _STREAM_MAX_ROWS = {(4, "halpern"): 256, (4, "average"): 256,
                     (8, "halpern"): None, (8, "average"): 256}
+# the grid kernels (csrc/pdhg_grid.cuh): the dtypes whose grid variant the
+# plan gives panels, float32 only while it is bit for bit the row-block
+# round (chip_smoke.py's b1 and b2 hold it so); its primal tile heights,
+# largest first, its primal tile width and K rows a stage, its dual tile
+# (rows, constraints), its stages and the pads of its operands
+_GRID_ITEMSIZES = (4,)
+_GRID_BM = (128, 64)
+_GRID_PARTS = (1, 2, 3, 4)          # streams a panel's rows split over
+_GRID_PART_ROWS = 512               # rows of a part, at least
+_GRID_BN = 128
+_GRID_BK = 16
+_GRID_DUAL = (32, 16)
+_GRID_STAGES = 3
+_GRID_M_ROUND = 16
+_GRID_B_ROUND = 128
 
 
 @functools.lru_cache(maxsize=1)
@@ -334,29 +362,91 @@ def _stream_smem(C: int, m: int, n: int, itemsize: int) -> int:
         else 0
 
 
-# K with its rows padded to a multiple of 16 bytes, by (device, dtype):
-# (a weak reference to the K it pads, K's version, the padded copy)
-_PADDED_K = {}
+# copies of K laid out for a kernel, by (kind, device, dtype): (a weak
+# reference to the K they come from, K's version, the copies)
+_DERIVED_K = {}
+
+
+def _derived(K: torch.Tensor, kind: str, make):
+    """``make()``, kept while the same tensor, unmodified, comes back
+    (every round of a solve hands the wrapper one K)."""
+    key = (kind, K.device, K.dtype)
+    held = _DERIVED_K.get(key)
+    if held is not None and held[0]() is K and held[1] == K._version:
+        return held[2]
+    out = make()
+    _DERIVED_K[key] = (weakref.ref(K), K._version, out)
+    return out
 
 
 def _stream_k(K: torch.Tensor):
     """(K, ldk): K with its row stride ldk padded to a multiple of 16
-    bytes, zeros past column n, as the stream kernels' bulk copies need.
-    The padded copy is kept while the same tensor, unmodified, comes back
-    (every round of a solve hands the wrapper one K)."""
+    bytes, zeros past column n, as the stream kernels' bulk copies need."""
     m, n = K.shape
     v = 16 // K.element_size()
     ldk = -(-n // v) * v
     if ldk == n:
         return K, ldk
-    key = (K.device, K.dtype)
-    held = _PADDED_K.get(key)
-    if held is not None and held[0]() is K and held[1] == K._version:
-        return held[2], ldk
-    Kp = torch.zeros((m, ldk), dtype=K.dtype, device=K.device)
-    Kp[:, :n] = K
-    _PADDED_K[key] = (weakref.ref(K), K._version, Kp)
-    return Kp, ldk
+
+    def make():
+        Kp = torch.zeros((m, ldk), dtype=K.dtype, device=K.device)
+        Kp[:, :n] = K
+        return Kp
+    return _derived(K, "stream", make), ldk
+
+
+def _grid_smem(BM: int, itemsize: int) -> int:
+    """Dynamic shared memory of the larger of a grid round's two kernels,
+    in bytes (mirrors csrc/pdhg_grid.cuh:primal_smem and dual_smem): the
+    primal phase's stages of BM rows of L (a row stride of 20 elements)
+    and 16 rows of 128 columns of K, the dual phase's stages of 32 rows of
+    Yb and 16 of K, 128 columns each; 0 for a float64 operand or a tile
+    height the kernel does not have."""
+    if itemsize != 4 or BM not in _GRID_BM:
+        return 0
+    primal = _GRID_STAGES * (BM * (_GRID_BK + 4) + _GRID_BK * _GRID_BN)
+    dual = _GRID_STAGES * sum(_GRID_DUAL) * 128
+    return max(primal, dual) * itemsize
+
+
+def _grid_fits(BM: int, itemsize: int, P: int = 1) -> bool:
+    """The grid kernel takes primal tiles of BM rows of this dtype, the
+    panel in P parts."""
+    return P in _GRID_PARTS and 0 < _grid_smem(BM, itemsize) <= _SMEM_MAX
+
+
+def _grid_shape(B: int, m: int, n: int, itemsize: int):
+    """(BM, P) of the grid variant for a [B] panel, or None for a dtype it
+    does not take: the tallest primal tile whose tiles fill every SM twice
+    (two CTAs of 2 BM threads fit an SM), else the shortest; parts of at
+    least 512 rows, at most 4 (the sweep at storm's rungs: 4 parts of 1024
+    rows at B = 4096, 2 of 512 at 1024)."""
+    fit = [BM for BM in _GRID_BM if _grid_fits(BM, itemsize)]
+    if not fit:
+        return None
+    P = min(max(_GRID_PARTS), max(1, -(-B // _GRID_PART_ROWS)))
+    cols = -(-n // _GRID_BN)
+    for BM in fit:
+        if -(-B // BM) * cols >= 2 * _sm_count():
+            return BM, P
+    return fit[-1], P
+
+
+def _grid_k(K: torch.Tensor):
+    """(Kp, Kr): K with its rows padded to a multiple of 16 and its columns
+    to one of 128 (zeros), as the grid kernels' unmasked stages read it,
+    and the same with the columns of every block of 128 residue-major
+    (position 4 l + k holds column 32 k + l), the dual phase's operand.
+    Kept while the same tensor, unmodified, comes back."""
+    def make():
+        m, n = K.shape
+        mK = -(-m // _GRID_M_ROUND) * _GRID_M_ROUND
+        ldk = -(-n // _GRID_BN) * _GRID_BN
+        Kp = torch.zeros((mK, ldk), dtype=K.dtype, device=K.device)
+        Kp[:m, :n] = K
+        Kr = Kp.view(mK, ldk // 128, 4, 32).transpose(2, 3).reshape(mK, ldk)
+        return Kp, Kr.contiguous()
+    return _derived(K, "grid", make)
 
 
 def _stream_fits(C: int, TM: int, m: int, n: int, itemsize: int) -> bool:
@@ -414,24 +504,30 @@ def _stream_shape(B: int, m: int, n: int, itemsize: int,
 def _plan(B: int, m: int, n: int, itemsize: int,
           scheme: str = "halpern") -> tuple:
     """The variant of the scheme's round for a [B] panel of an [m, n] K:
-    ``("cluster", C, R)``, ``("tile", C, arith)``, ``("stream", C, TM)``
-    or ``("rows", ROWS)``. A function of the shapes and the dtype's size,
-    and for a K of at least ``_CLUSTER_MIN_K_BYTES`` of the card's cluster
-    occupancy: a panel that one wave of small clusters holds takes the
-    cluster kernel, a larger one the tile kernel; where no tile shape fits,
-    the stream kernel takes what the cluster kernel does not, and what
-    fits none of them the row-block kernel."""
+    ``("cluster", C, R)``, ``("tile", C, arith)``, ``("stream", C, TM)``,
+    ``("grid", BM, P)`` or ``("rows", ROWS)``. A function of the shapes and
+    the dtype's size, and for a K of at least ``_CLUSTER_MIN_K_BYTES`` of
+    the card's cluster occupancy and SM count: a panel that one wave of
+    small clusters holds takes the cluster kernel, a larger one the tile
+    kernel; where no tile shape fits, the grid kernel takes the float32
+    panels the cluster kernel does not (storm's from 85 rows), the stream
+    kernel the float64 ones up to its ``_STREAM_MAX_ROWS``, and what fits
+    none of them the row-block kernel (storm's float64 average round past
+    256 rows)."""
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}")
     if m * n * itemsize >= _CLUSTER_MIN_K_BYTES:
         tile = _tile_shape(B, m, n, itemsize, scheme)
+        grid = _grid_shape(B, m, n, itemsize) \
+            if tile is None and itemsize in _GRID_ITEMSIZES else None
         most = _STREAM_MAX_ROWS[itemsize, scheme]
         stream = _stream_shape(B, m, n, itemsize, scheme) \
-            if tile is None and itemsize in _STREAM_ITEMSIZES \
+            if tile is None and grid is None \
+            and itemsize in _STREAM_ITEMSIZES \
             and (most is None or B <= most) else None
         if tile is not None:
             max_rows, max_waves = _CLUSTER_MAX_ROWS_VS_TILE, 1
-        elif stream is not None:
+        elif stream is not None or grid is not None:
             max_rows, max_waves = 8, _CLUSTER_MAX_WAVES_VS_STREAM
         else:
             max_rows, max_waves = 8, _CLUSTER_MAX_WAVES
@@ -441,6 +537,8 @@ def _plan(B: int, m: int, n: int, itemsize: int,
             return ("cluster",) + shape
         if tile is not None:
             return ("tile",) + tile
+        if grid is not None:
+            return ("grid",) + grid
         if stream is not None:
             return ("stream",) + stream
     return ("rows", _rows_per_block(f"pdhg_{scheme}_round", B,
@@ -555,7 +653,7 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
     current stream, raise if the launch is refused, and count it."""
     name = f"pdhg_{scheme}_round"
     if not (isinstance(plan, tuple) and plan
-            and plan[0] in ("rows", "cluster", "tile", "stream")
+            and plan[0] in ("rows", "cluster", "tile", "stream", "grid")
             and len(plan) in ((2,) if plan[0] == "rows" else
                               (3, 4) if plan[0] == "tile" else (3,))):
         raise ValueError(f"{name}: unknown plan {plan!r}")
@@ -573,6 +671,22 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
             raise ValueError(f"{name}: the card cannot schedule {plan!r}")
         Kp, ldk = _stream_k(K)
         stem, head = f"pdhg_{scheme}_stream", (C, TM, ldk)
+        operands = (Kp,) + tuple(operands[1:])
+    elif plan[0] == "grid":
+        BM, P = plan[1:]
+        if not (isinstance(BM, int) and isinstance(P, int)
+                and _grid_fits(BM, it, P)):
+            raise ValueError(f"{name}: no grid kernel for {plan!r} at "
+                             f"itemsize={it} (float32 only, BM in "
+                             f"{_GRID_BM}, P in {_GRID_PARTS})")
+        Kp, Kr = _grid_k(K)
+        mK, ldk = Kp.shape
+        Bp = -(-B // _GRID_B_ROUND) * _GRID_B_ROUND
+        Ls = torch.empty((Bp, mK), dtype=K.dtype, device=K.device)
+        Ybr = torch.empty((Bp, ldk), dtype=K.dtype, device=K.device)
+        stem = f"pdhg_{scheme}_grid"
+        head = (BM, P, ldk, mK, Kr.data_ptr(), Ls.data_ptr(),
+                Ybr.data_ptr())
         operands = (Kp,) + tuple(operands[1:])
     else:
         C, arith = plan[1:3]
@@ -599,10 +713,12 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
                ("halpern", "cluster"): "cluster_launches",
                ("halpern", "tile"): "tile_launches",
                ("halpern", "stream"): "stream_launches",
+               ("halpern", "grid"): "grid_launches",
                ("average", "rows"): "average_launches",
                ("average", "cluster"): "average_cluster_launches",
                ("average", "tile"): "average_tile_launches",
                ("average", "stream"): "average_stream_launches",
+               ("average", "grid"): "average_grid_launches",
                }[scheme, plan[0]]
     globals()[counter] += 1
     launches_by_shape[counter, B, it] += 1

@@ -67,13 +67,15 @@ def _variant(name, B, dtype, variant, scheme="halpern"):
         return ("tile",) + pdhg_kernel._tile_shape(B, m, n, it, scheme)
     if variant == "stream":
         return ("stream",) + pdhg_kernel._stream_shape(B, m, n, it, scheme)
+    if variant == "grid":
+        return ("grid",) + pdhg_kernel._grid_shape(B, m, n, it)
     return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it, scheme)
 
 
 _COUNTERS = ("launches", "cluster_launches", "tile_launches",
-             "stream_launches", "average_launches",
+             "stream_launches", "grid_launches", "average_launches",
              "average_cluster_launches", "average_tile_launches",
-             "average_stream_launches")
+             "average_stream_launches", "average_grid_launches")
 
 
 def _counts():
@@ -82,12 +84,13 @@ def _counts():
 
 def _counter(scheme, plan):
     return {"rows": "launches", "cluster": "cluster_launches",
-            "tile": "tile_launches",
-            "stream": "stream_launches"}[plan[0]] if scheme == "halpern" \
+            "tile": "tile_launches", "stream": "stream_launches",
+            "grid": "grid_launches"}[plan[0]] if scheme == "halpern" \
         else {"rows": "average_launches",
               "cluster": "average_cluster_launches",
               "tile": "average_tile_launches",
-              "stream": "average_stream_launches"}[plan[0]]
+              "stream": "average_stream_launches",
+              "grid": "average_grid_launches"}[plan[0]]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -328,6 +331,88 @@ def test_forced_stream_plans_that_do_not_fit_raise(cuda):
         before = _counts()
         with pytest.raises(ValueError, match="no stream kernel"):
             pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
+        assert _counts() == before
+
+
+@pytest.mark.parametrize("per_el_q", [False, True])
+@pytest.mark.parametrize("B,shape", [(1024, None), (1000, None),
+                                     (4096, None), (4096, (64, 3)),
+                                     (300, (128, 2)), (600, (64, 1)),
+                                     (2, (64, 1))])
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_grid_kernels_match_plain(cuda, scheme, B, shape, per_el_q):
+    """The grid kernels of both schemes vs their plain versions over one
+    80-step round at storm's float32 shapes (the MC panels of 1024 and
+    4096 rows, ragged 1000, 600 and 300, the SD panel's 2 rows), at the
+    plan's primal tile height and part count and at others (a ragged last
+    part, one part), shared and per-row q: within 1e-4; two launches
+    bitwise equal, each counted under the grid variant; bit for bit the
+    row-block kernel's round."""
+    args = _round_args("storm", B, torch.float32, cuda, per_el_q)
+    m, n = args[0].shape
+    if shape is None:
+        shape = pdhg_kernel._grid_shape(B, m, n, 4)
+    plan = ("grid",) + tuple(shape)
+    if scheme == "average":
+        args = args[:10]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    before = _counts()
+    out = kernel(*args, 80, plan=plan)
+    again = kernel(*args, 80, plan=plan)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want[_counter(scheme, plan)] += 2
+    assert _counts() == want
+    assert all(torch.equal(a, o) for a, o in zip(again, out))
+    ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
+    for o, r in zip(out, ref):
+        scale = 1.0 + float(r.abs().max())
+        assert float((o - r).abs().max()) <= 1e-4 * scale
+    rows = kernel(*args, 80, plan=_variant("storm", B, torch.float32, "rows",
+                                           scheme))
+    assert all(torch.equal(a, o) for a, o in zip(rows, out))
+
+
+def test_grid_kernel_keeps_nan(cuda):
+    """A row that has diverged to NaN stays NaN through the grid kernels
+    of both schemes, as through the row-block kernel, and does not leak
+    into the other rows of its tiles."""
+    for scheme in ("halpern", "average"):
+        args = list(_round_args("storm", 300, torch.float32, cuda, False))
+        args[8] = args[8].clone()
+        args[8][3, 5] = float("nan")
+        if scheme == "average":
+            args = args[:10]
+        kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+        out = kernel(*args, 8, plan=("grid", 64, 2))
+        rows = kernel(*args, 8, plan=("rows", 1))
+        torch.cuda.synchronize()
+        for o, r in zip(out, rows):
+            assert torch.equal(torch.isnan(o), torch.isnan(r))
+            assert bool(torch.isnan(o[3]).any())
+            keep = [i for i in range(300) if i != 3]
+            assert bool(torch.isfinite(o[keep]).all())
+            assert torch.equal(o[keep], r[keep])
+
+
+def test_forced_grid_plans_that_do_not_fit_raise(cuda):
+    """A grid plan the kernel cannot take raises before any launch: a
+    float64 panel, a primal tile height it does not have, 5 parts; the
+    smem the wrapper counts is the kernel's own at every height."""
+    from sqlp_tpu_torch.ops.cuda import build
+    lib = build.load()
+    for BM in (32, 64, 96, 128):
+        assert lib.pdhg_grid_smem(BM) == pdhg_kernel._grid_smem(BM, 4)
+    for dtype, plan in ((torch.float64, ("grid", 128, 4)),
+                        (torch.float32, ("grid", 96, 1)),
+                        (torch.float32, ("grid", 32, 1)),
+                        (torch.float32, ("grid", 64, 5))):
+        args = _round_args("storm", 1024, dtype, cuda, False)
+        before = _counts()
+        with pytest.raises(ValueError, match="no grid kernel"):
+            pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
+        with pytest.raises(ValueError, match="no grid kernel"):
+            pdhg_kernel.pdhg_average_round(*args[:10], 80, plan=plan)
         assert _counts() == before
 
 

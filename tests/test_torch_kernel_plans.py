@@ -6,8 +6,10 @@ The expected variants are the ones the H100 measurements chose
 (``chip_smoke.py --phases sweep``; PERF.md): for either PDHG round the
 cluster kernel for the small panels of an instance whose K does not fit
 L1, the tile kernel for its large panels, the stream kernel for a K whose
-slices fit no cluster (storm), the row-block kernel for a small K, and the
-master on a cluster of 8 (one block for a master as small as lands').
+slices fit no cluster (storm) in float64, the grid kernel for such a K's
+float32 panels past the cluster kernel's, the row-block kernel for a
+small K, and the master on a cluster of 8 (one block for a master as
+small as lands').
 """
 
 import pytest
@@ -63,15 +65,16 @@ _PDHG = {
     ("ssn", 8): (("cluster", 16, 1), ("cluster", 8, 2), ("tile", 8, "mma"),
                  ("tile", 8, "mma")),
     ("storm", 4): (("cluster", 16, 1), ("cluster", 16, 1),
-                   ("stream", 6, 16), ROWS4),
+                   ("grid", 64, 1), ("grid", 128, 4)),
     ("storm", 8): (("stream", 16, 16),) * 4,
 }
 
 
 def _check_admitted(plan, B, m, n, itemsize, scheme):
-    """A cluster, tile or stream plan's footprint fits a CTA and its
+    """A cluster, tile, stream or grid plan's footprint fits a CTA and its
     registers; a stream plan names a cluster size the kernel is launched
-    with and tiles of 16 rows."""
+    with and tiles of 16 rows; a grid plan a float32 panel and a primal
+    tile height the kernel has."""
     if plan[0] == "cluster":
         _, C, R = plan
         assert pdhg_kernel._cluster_fits(C, R, m, n, itemsize, scheme)
@@ -90,6 +93,12 @@ def _check_admitted(plan, B, m, n, itemsize, scheme):
         assert itemsize in pdhg_kernel._STREAM_ITEMSIZES
         assert 0 < pdhg_kernel._stream_smem(C, m, n, itemsize) <= SMEM_MAX
         assert pdhg_kernel._stream_fits(C, TM, m, n, itemsize)
+    elif plan[0] == "grid":
+        _, BM, P = plan
+        assert itemsize == 4 and itemsize in pdhg_kernel._GRID_ITEMSIZES
+        assert BM in pdhg_kernel._GRID_BM and P in pdhg_kernel._GRID_PARTS
+        assert pdhg_kernel._grid_fits(BM, itemsize, P)
+        assert 0 < pdhg_kernel._grid_smem(BM, itemsize) <= SMEM_MAX
     else:
         assert plan[0] == "rows" and plan[1] in (1, 2, 4)
 
@@ -105,11 +114,10 @@ def test_pdhg_plan(h100, name, itemsize, B):
     f32 and of 8-CTA clusters with 2 rows in f64, and from B = 256 the tile
     kernel on 30 clusters of 4 (f32) or 15 of 8 (f64: K's f64 slices need
     8 CTAs); storm's f32 K fits only the cluster kernel at 16 CTAs and no
-    tile shape, so past 12 waves of the cluster kernel its panels stream
-    K (256 rows on one wave of clusters of 6) up to 256 rows, and larger
-    ones take the row-block kernel (measured faster there); its f64 K
-    (5.3 MB) fits no cluster at all: every panel streams on clusters of
-    16."""
+    tile shape, so past 12 waves of the cluster kernel its panels take the
+    grid kernel (primal tiles of 64 rows at 256, of 128 at the MC panel;
+    measured ahead of the stream kernel from 100 rows); its f64 K (5.3 MB)
+    fits no cluster at all: every panel streams on clusters of 16."""
     m, n = _shape(name)
     plan = pdhg_kernel._plan(B, m, n, itemsize)
     assert plan == _PDHG[(name, itemsize)][PANELS.index(B)]
@@ -474,11 +482,17 @@ def test_launch_refuses_a_stream_plan_the_kernel_does_not_take(plan):
 
 def test_stream_plan_keeps_float32_off_while_not_admitted(h100,
                                                           monkeypatch):
-    """With float32 out of _STREAM_ITEMSIZES (its admission rule: the f32
-    stream round neither bit for bit the row-block round nor through the
-    f32 gate), storm's f32 panels past the cluster kernel's 3 waves go
-    back to the row-block kernel, and f64 keeps the stream kernel."""
+    """The stream kernel takes storm's f32 panels only while the grid
+    kernel is not admitted for them (float32 out of _GRID_ITEMSIZES), and
+    then only while float32 is in _STREAM_ITEMSIZES (its admission rule:
+    the f32 stream round neither bit for bit the row-block round nor
+    through the f32 gate); without it they go back to the row-block
+    kernel past the cluster kernel's 3 waves, and f64 keeps the stream
+    kernel."""
     m, n = _shape("storm")
+    assert pdhg_kernel._plan(100, m, n, 4) == ("grid", 64, 1)
+    monkeypatch.setattr(pdhg_kernel, "_GRID_ITEMSIZES", ())
+    pdhg_kernel._plan.cache_clear()
     assert pdhg_kernel._plan(100, m, n, 4) == ("stream", 16, 16)
     monkeypatch.setattr(pdhg_kernel, "_STREAM_ITEMSIZES", (8,))
     pdhg_kernel._plan.cache_clear()
@@ -490,12 +504,132 @@ def test_stream_plan_keeps_float32_off_while_not_admitted(h100,
 
 def test_stream_plan_on_storm_ladder(h100):
     """Storm's f32 panels: the cluster kernel while 12 waves of it hold
-    the panel (84 rows), then the stream kernel up to 256 rows, then the
-    row-block kernel; the f64 Halpern round streams at every size."""
+    the panel (84 rows), then the grid kernel, which the sweep put ahead
+    of the stream kernel at 100 and 256 rows; the f64 Halpern round
+    streams at every size, the f64 average round up to 256 rows."""
     m, n = _shape("storm")
     assert pdhg_kernel._plan(84, m, n, 4) == ("cluster", 16, 1)
-    assert pdhg_kernel._plan(85, m, n, 4)[0] == "stream"
-    assert pdhg_kernel._plan(256, m, n, 4)[0] == "stream"
-    assert pdhg_kernel._plan(257, m, n, 4)[0] == "rows"
+    assert pdhg_kernel._plan(85, m, n, 4)[0] == "grid"
+    assert pdhg_kernel._plan(256, m, n, 4)[0] == "grid"
+    assert pdhg_kernel._plan(257, m, n, 4)[0] == "grid"
+    assert pdhg_kernel._plan(256, m, n, 8, "average")[0] == "stream"
+    assert pdhg_kernel._plan(257, m, n, 8, "average")[0] == "rows"
     for B in (1, 2, 257, 1024, 4096, 8192):
         assert pdhg_kernel._plan(B, m, n, 8) == ("stream", 16, 16)
+
+
+# storm's float32 panels past the cluster kernel: (B, the grid kernel's
+# primal tile rows, parts); 10 column tiles of 128, 132 SMs
+_STORM_GRID = ((85, 64, 1), (100, 64, 1), (256, 64, 1), (257, 64, 1),
+               (512, 64, 1), (513, 64, 2), (1000, 64, 2), (1024, 64, 2),
+               (1025, 64, 3), (2048, 64, 4), (3328, 64, 4),
+               (3456, 128, 4), (4096, 128, 4), (8192, 128, 4),
+               (65536, 128, 4))
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+@pytest.mark.parametrize("B,BM,P", _STORM_GRID)
+def test_grid_plan_on_storm_ladder(h100, scheme, B, BM, P):
+    """Storm's float32 panels past the cluster kernel's 12 waves take the
+    grid kernel under either scheme: primal tiles of 128 rows once they
+    fill every SM twice (27 row tiles of 128 x 10 column tiles >= 264),
+    else of 64; the panel in parts of at least 512 rows, at most 4; its
+    footprint fits a CTA at every such shape; the float64 rounds keep the
+    stream kernel (Halpern; average up to 256 rows) and the row-block
+    kernel (average past 256 rows) there."""
+    m, n = _shape("storm")
+    plan = pdhg_kernel._plan(B, m, n, 4, scheme)
+    assert plan == ("grid", BM, P)
+    _check_admitted(plan, B, m, n, 4, scheme)
+    assert pdhg_kernel._grid_smem(BM, 4) <= SMEM_MAX
+    assert pdhg_kernel._plan(B, m, n, 8, scheme)[0] == \
+        ("stream" if scheme == "halpern" or B <= 256 else "rows")
+
+
+def test_grid_plan_keeps_float32_off_while_not_admitted(h100, monkeypatch):
+    """With float32 out of _GRID_ITEMSIZES (its admission rule: the f32
+    grid round bit for bit the row-block round), storm's f32 panels of
+    85-256 rows go back to the stream kernel and its MC panels to the
+    row-block kernel (2 rows a block at 1024, 4 at 4096); f64 keeps its
+    plans."""
+    m, n = _shape("storm")
+    assert pdhg_kernel._plan(1024, m, n, 4) == ("grid", 64, 2)
+    monkeypatch.setattr(pdhg_kernel, "_GRID_ITEMSIZES", ())
+    pdhg_kernel._plan.cache_clear()
+    for scheme in ("halpern", "average"):
+        assert pdhg_kernel._plan(1024, m, n, 4, scheme) == ROWS2
+        assert pdhg_kernel._plan(4096, m, n, 4, scheme) == ROWS4
+        assert pdhg_kernel._plan(256, m, n, 4, scheme) == ("stream", 6, 16)
+    assert pdhg_kernel._plan(4096, m, n, 8) == ("stream", 16, 16)
+    pdhg_kernel._plan.cache_clear()
+
+
+def _grid_smem_by_region(BM):
+    """csrc/pdhg_grid.cuh: each phase's stages, 3 of them; the larger
+    phase's footprint."""
+    primal = {"L": BM * (16 + 4), "K": 16 * 128}     # a stage
+    dual = {"Yb": 32 * 128, "K": 16 * 128}
+    assert (16 + 4) % 4 == 0                       # 16-byte rows
+    return 3 * 4 * max(sum(primal.values()), sum(dual.values()))
+
+
+@pytest.mark.parametrize("BM", [32, 64, 96, 128, 256])
+def test_grid_smem_mirrors_the_kernel_layout(BM):
+    """_grid_smem is the larger phase's stages at the tile heights the
+    kernel has (64 and 128 rows: the dual phase's 72 KB), 0 at any other
+    height and for float64, which the grid kernel does not take; the
+    kernel takes 1 to 4 parts."""
+    want = _grid_smem_by_region(BM) if BM in (64, 128) else 0
+    assert pdhg_kernel._grid_smem(BM, 4) == want
+    for P in range(6):
+        assert pdhg_kernel._grid_fits(BM, 4, P) \
+            == (0 < want <= SMEM_MAX and 1 <= P <= 4)
+    assert pdhg_kernel._grid_smem(BM, 8) == 0
+    assert not pdhg_kernel._grid_fits(BM, 8)
+
+
+@pytest.mark.parametrize("dtype,plan", [
+    (torch.float64, ("grid", 128, 4)), (torch.float64, ("grid", 64, 1)),
+    (torch.float32, ("grid", 96, 1)), (torch.float32, ("grid", 32, 2)),
+    (torch.float32, ("grid", 256, 4)), (torch.float32, ("grid", 128.0, 4)),
+    (torch.float32, ("grid", "128", 4)), (torch.float32, ("grid", 64, 0)),
+    (torch.float32, ("grid", 64, 5)), (torch.float32, ("grid", 64, 2.0))])
+def test_launch_refuses_a_grid_plan_the_kernel_does_not_take(dtype, plan):
+    """A forced grid plan on a float64 operand, with a primal tile height
+    the kernel does not have, or with a part count outside 1-4, raises at
+    the wrapper, before the card is asked."""
+    K = torch.zeros((528, 1259), dtype=dtype)
+    with pytest.raises(ValueError, match="no grid kernel"):
+        pdhg_kernel._launch("halpern", plan, K, (), 1024, 528, 1259, 80)
+
+
+@pytest.mark.parametrize("plan", [("grid",), ("grid", 64),
+                                  ("grid", 64, 1, 1), ("grids", 64, 1)])
+def test_launch_refuses_a_grid_plan_of_another_length(plan):
+    K = torch.zeros((528, 1259))
+    with pytest.raises(ValueError, match="unknown plan"):
+        pdhg_kernel._launch("average", plan, K, (), 1024, 528, 1259, 80)
+
+
+@pytest.mark.parametrize("m,n", [(528, 1259), (7, 12), (32, 128)])
+def test_grid_k_is_padded_and_residue_major(m, n):
+    """The grid kernels' copies of K: Kp pads the rows to a multiple of 16
+    and the columns to one of 128 with zeros; Kr holds, at position
+    4 l + k of every block of 128 columns, Kp's column 32 k + l (a lane's
+    j, j + 32, j + 64, j + 96 side by side). Both are kept while the same
+    K comes back unmodified and made anew after an in-place change."""
+    g = torch.Generator().manual_seed(0)
+    K = torch.randn((m, n), generator=g)
+    Kp, Kr = pdhg_kernel._grid_k(K)
+    mK, ldk = -(-m // 16) * 16, -(-n // 128) * 128
+    assert Kp.shape == Kr.shape == (mK, ldk)
+    assert Kr.is_contiguous()
+    assert torch.equal(Kp[:m, :n], K)
+    assert not Kp[m:].any() and not Kp[:, n:].any()
+    pos = torch.arange(ldk)
+    col = pos // 128 * 128 + (pos % 4) * 32 + (pos % 128) // 4
+    assert torch.equal(Kr, Kp[:, col])
+    assert pdhg_kernel._grid_k(K)[1] is Kr
+    K.mul_(2.0)
+    Kp2, _ = pdhg_kernel._grid_k(K)
+    assert Kp2 is not Kp and torch.equal(Kp2[:m, :n], K)
