@@ -10,6 +10,9 @@
     python3 chip_smoke.py --phases device,mesh_nccl     # on 4 cards
     python3 chip_smoke.py --phases device,storm --storm-iters 1500
     python3 chip_smoke.py --phases device,surface
+    python3 chip_smoke.py --phases device,bench
+    python3 chip_smoke.py --phases device,bench_full \
+        --bench-sections ssn_time_to_gap
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
@@ -86,7 +89,16 @@ surface: every name the port's package `__init__`s re-export,
 `solve_instance("lands", 20)` held bit for bit to `SDSolver.run(20)`, and
 `saa_ef_bound` on two lands replications in float64 (64 fresh scenarios)
 under the default dual repair, the raw duals with no host re-solve and
-no f64 continuation, each bound at most its EF objective. Any failed
+no f64 continuation, each bound at most its EF objective. `bench`,
+after `surface` and before the CLI phases start (no other process of
+the script beside it), drives the port's bench (sqlp_tpu_torch/bench.py):
+`python -m sqlp_tpu_torch bench --skip-sd-gap` at the reference's depth
+(ssn at B = 4096 under its HiGHS spot check, against 80 serial host
+LPs), then four other sections in this process at BENCH_SMOKE's
+depths (ssn_certified only in `bench_full`), each held to the
+reference's keys, finite bounds and its kernels' launches; `bench_full`
+(not run by default) runs the sections named by `--bench-sections` at
+the reference's depths. Any failed
 phase exits non-zero. The
 last two lines of stdout are a JSON line of per-kernel numbers and the
 JSON status line. Needs one CUDA device; exits non-zero without one.
@@ -315,6 +327,10 @@ _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
 # CERT_FRESH (later rounds) and the 16384 of its 8 x 2 x 1024
 _POLISH_CASES = (("ssn", 8000, False), ("ssn", 8192, False),
                  ("ssn", 16000, False), ("ssn", 16384, False))
+# the bench's float32 panels, Halpern only, in the plan's variant:
+# storm_certified's evaluate_ci(batch=8192) panel
+# (sqlp_tpu_torch/bench.py:_bench_certified)
+_BENCH_CASES = (("storm", 8192, False),)
 # a variant's entry in the kernels line: the wrapper's counter and the
 # shape and dtype its time is reported at (the path's own: the SD panel of
 # the main path is 2 rows, of the replicated path 16, the MC panel 4096;
@@ -368,7 +384,9 @@ def phase_pdhg(results, phase):
     """One PDHG round against its plain version, f32 and f64, at the
     shapes of the SD step (B = 2; 16 replicated), the MC panel (B = 4096),
     storm, lands and per-element q (a ragged tile too), and the Halpern
-    round in f32 at the polish routes' panels (8000 to 16,384 rows): every
+    round in f32 at the polish routes' panels (8000 to 16,384 rows) and
+    the bench's storm panel of 8192 rows (only the plan's variant and
+    the row-block kernel there): every
     variant the shape admits, timed in the same call, two launches bitwise
     equal. The float32 stream and grid variants are also held to the
     row-block kernel's bits: where the plan admits them (rule (a) of their
@@ -386,7 +404,8 @@ def phase_pdhg(results, phase):
     worst = {}
     cases = [(c, (torch.float32, torch.float64)) for c in _PDHG_CASES]
     if scheme == "halpern":
-        cases += [(c, (torch.float32,)) for c in _POLISH_CASES]
+        cases += [(c, (torch.float32,))
+                  for c in _POLISH_CASES + _BENCH_CASES]
     for (inst, B, per_el), dtypes in cases:
         for dtype in dtypes:
             args = _pdhg_case(inst, B, dtype, per_el_q=per_el)[:n_args]
@@ -398,6 +417,11 @@ def phase_pdhg(results, phase):
             plain_ms = time_ms(lambda: plain(*args, n_inner), reps)
             bound = pdhg_bound(args, n_inner, dname)
             variants = _variants(args, scheme)
+            if (inst, B, per_el) in _BENCH_CASES:
+                # the plan's variant, and the row-block kernel it is held
+                # to bit for bit
+                variants = [v for v in variants
+                            if v[0] in (variants[0][0], "rows")]
             took = {}       # ms by variant: "rows", "cluster", "tile", ...
             for plan in variants:
                 out = kernel(*args, n_inner, plan=plan)
@@ -2855,6 +2879,199 @@ def start_cli_run(results):
     return finish
 
 
+# the bench phase's depths of the sections it calls in this process
+# (sqlp_tpu_torch/bench.py:run_section's arguments): the reference bench's
+# workloads cut to the fewest iterations that drive each section's glue on
+# the card, as the script has no room (with 20, 10, 2 x 10 and 40
+# iterations here the default script took 1259.3 s on an H100 whose host
+# ran the main path at 4.15 it/s). storm_certified's 8192 samples are one
+# panel of evaluate_ci(batch=8192), the shape its full depth gives the
+# grid kernel. ssn_certified (R 2 x 20, 256 fresh scenarios: 67.7 s on an
+# H100, most of it the EF at tol 1e-5) runs in bench_full only
+BENCH_SMOKE = {
+    "ssn_time_to_gap": {"n_iters": 5},
+    "storm_time_to_gap": {"n_iters": 3},
+    "storm_certified": {"n_reps": 2, "n_iters": 3, "method": "model",
+                        "ub_samples": 8192, "ub_half_width": 0.0},
+    "lands_target_gap": {"max_iters": 10, "certify_every": 10,
+                         "min_ub_samples": 2048, "max_ub_samples": 2048,
+                         "fresh_scenarios": 256},
+}
+# the keys of the reference bench's dicts (bench.py:207-209, 240-247,
+# 329-358; lands: SDReplications.solve_to_certified_gap's record less
+# x_compromise and rounds, bench.py:361-381) and of its last object under
+# --skip-sd-gap (:409-418)
+BENCH_KEYS = {
+    "throughput": ("throughput", "baseline", "baseline_runs", "batch",
+                   "max_rel_err_vs_highs"),
+    "sd_gap": ("sd_iters", "sd_wallclock_s", "sd_iters_per_sec", "gap_kind",
+               "lb_est", "lb_est_mean_last100", "mc_ub", "mc_ub_half_width",
+               "rel_gap"),
+    "certified": ("n_replications", "sd_iters", "cert_method", "decision",
+                  "decision_selection", "n_cert_scenarios", "sd_wall_s",
+                  "cert_wall_s", "ub_wall_s", "total_wall_s", "lb_cert",
+                  "lb_mean", "lb_half_width", "lb_per_rep_min",
+                  "lb_per_rep_max", "ef_err_max", "dual_infeas_max",
+                  "confidence", "decision_mc_ub",
+                  "decision_mc_ub_half_width", "mc_ub_samples",
+                  "host_fallback_count", "cert_gap"),
+    "lands_target_gap": ("it", "route", "wall_s", "lb_cert", "lb_mean",
+                         "lb_half_width", "compromise_mc_ub",
+                         "compromise_mc_ub_half_width", "mc_ub_samples",
+                         "cert_gap", "stopped", "iters", "target_gap",
+                         "confidence", "time_to_certified_gap_s"),
+    "final": ("metric", "value", "unit", "vs_baseline", "backend", "batch",
+              "serial_baseline_lp_per_sec", "serial_baseline_runs"),
+}
+# a section's kind of dict, and the kernels its path must launch
+_BENCH_KIND = {"ssn_time_to_gap": "sd_gap", "storm_time_to_gap": "sd_gap",
+               "storm_certified": "certified", "ssn_certified": "certified",
+               "lands_target_gap": "lands_target_gap",
+               "throughput": "throughput"}
+_BENCH_KERNELS = {
+    "throughput": ("pdhg_halpern_tile",),
+    "ssn_time_to_gap": ("pdhg_halpern_cluster", "pdhg_halpern_tile",
+                        "admm_round"),
+    "storm_time_to_gap": ("pdhg_halpern_cluster", "pdhg_halpern_grid",
+                          "admm_round"),
+    "storm_certified": ("pdhg_halpern_grid", "admm_round"),
+    "ssn_certified": ("pdhg_halpern_cluster", "pdhg_halpern_tile",
+                      "admm_round"),
+    "lands_target_gap": ("pdhg_halpern_round", "admm_round"),
+}
+# a kind's numbers that must be finite, and its (lower bound, upper bound,
+# half-width), the lower at most the upper plus the half-width
+_BENCH_BOUNDS = {
+    "throughput": (("throughput", "baseline"), None),
+    "sd_gap": (("lb_est", "lb_est_mean_last100", "mc_ub",
+                "mc_ub_half_width"), None),
+    "certified": (("lb_cert", "lb_mean", "lb_half_width", "decision_mc_ub",
+                   "decision_mc_ub_half_width"),
+                  ("lb_cert", "decision_mc_ub", "decision_mc_ub_half_width")),
+    "lands_target_gap": (("lb_cert", "lb_mean", "lb_half_width",
+                          "compromise_mc_ub", "compromise_mc_ub_half_width"),
+                         ("lb_cert", "compromise_mc_ub",
+                          "compromise_mc_ub_half_width")),
+}
+
+
+def _bench_gates(tag, name, rec):
+    """A section's gates: the reference's keys, its numbers finite, its
+    lower bound at most its upper bound + half-width; the throughput's
+    rates positive and its HiGHS spot check below 1e-3."""
+    kind = _BENCH_KIND[name]
+    missing = [k for k in BENCH_KEYS[kind] if k not in rec]
+    if missing:
+        raise AssertionError(f"[{tag}] {name} lacks the reference's keys "
+                             f"{missing}: {rec}")
+    finite, order = _BENCH_BOUNDS[kind]
+    ok = all(math.isfinite(rec[k]) for k in finite)
+    if order:
+        lo, ub, hw = (rec[k] for k in order)
+        ok = ok and lo <= ub + hw
+    if kind == "throughput":
+        ok = ok and rec["throughput"] > 0.0 and rec["baseline"] > 0.0 \
+            and rec["max_rel_err_vs_highs"] < 1e-3
+    if not ok:
+        raise AssertionError(f"[{tag}] {name} fails its gates: {rec}")
+
+
+def _bench_section(results, name, depth, instances, path):
+    """One section through sqlp_tpu_torch.bench.run_section inside a
+    reset-and-read window of the launch counts: its line, its launches
+    (also by rung), its gates (_bench_gates) and its kernels launched."""
+    import torch
+    from sqlp_tpu_torch import bench as pb
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rec = pb.run_section(name, torch.device("cuda"), depth, instances)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _counts()
+    log(json.dumps({"section": name, **rec}))
+    log(f"[{path}] {name} in {sec:.1f}s; launches: {json.dumps(counts)}")
+    log(f"[{path}] {name} launches by rung: {_by_rung()}")
+    _bench_gates(path, name, rec)
+    _record_launches(results, counts, _BENCH_KERNELS[name],
+                     f"{path}_{name}")
+    return rec
+
+
+def _others_beside(tag):
+    """Log the script's own subprocesses still running beside a phase."""
+    running = [p.pid for p in _STARTED if p.poll() is None]
+    log(f"[{tag}] other processes of this script beside it: "
+        f"{running if running else 'none'}")
+    return running
+
+
+def phase_bench(results):
+    """The reference bench's sections through the port's module, with no
+    other process of the script on the card.
+    (a) The entry point at the reference's depth: ``python -m
+        sqlp_tpu_torch bench --skip-sd-gap`` (ssn at B = 4096, the HiGHS
+        spot check on every 1024th row, 5 x 16 serial host LPs), counting
+        its launches: rc 0, exactly two JSON lines (the section, then the
+        reference's object with its keys), the section's gates
+        (_bench_gates: max_rel_err_vs_highs < 1e-3, throughput and
+        baseline positive and finite), B1's tile kernel launched.
+    (b) The glue on the card: four other sections in this process at
+        BENCH_SMOKE's depths, each in a window of its own: the reference's
+        keys, every bound finite, each lower bound at most its upper bound
+        + half-width, the kernels of _BENCH_KERNELS launched
+        (storm_certified: the grid kernel at 8192 rows)."""
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
+
+    t0 = time.perf_counter()
+    _others_beside("bench")
+    proc, out, err = _cli(["bench", "--skip-sd-gap"], counted=True)
+    rc = proc.wait()
+    out, err = _read(out), _read(err)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    log(f"[bench] python -m sqlp_tpu_torch bench --skip-sd-gap: rc={rc} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for ln in lines:
+        log(ln)
+    if rc != 0 or len(lines) != 2:
+        raise AssertionError(f"[bench] the CLI gave rc {rc} and {len(lines)} "
+                             f"JSON lines (want 0 and 2): {err[-2000:]}")
+    sec, final = map(json.loads, lines)
+    m = re.search(r"chip_smoke launches: (\{.*\})", err)
+    if m is None:
+        raise AssertionError("[bench] the CLI printed no launch counts")
+    counts = json.loads(m.group(1))
+    log(f"[bench] throughput launches: {json.dumps(counts)}")
+    missing = [k for k in BENCH_KEYS["final"] if k not in final]
+    if sec.pop("section", None) != "throughput" or missing:
+        raise AssertionError(f"[bench] the CLI's lines {lines} (the last "
+                             f"lacks {missing})")
+    _bench_gates("bench", "throughput", sec)
+    _record_launches(results, counts, _BENCH_KERNELS["throughput"],
+                     "bench_throughput")
+
+    instances = {}
+    for name in BENCH_SMOKE:
+        _bench_section(results, name, BENCH_SMOKE, instances, "bench")
+        if name == "storm_certified" and not pk.launches_by_shape.get(
+                ("grid_launches", 8192, 4)):
+            raise AssertionError(f"[bench] storm_certified's 8192-row "
+                                 f"panel left the grid kernel: {_by_rung()}")
+    _others_beside("bench")
+
+
+def phase_bench_full(results, sections):
+    """``sections`` through the port's bench module at the reference's
+    depths (bench.DEPTHS["cuda"]), one after another in this process, each
+    in a window of its own; the same gates as the bench phase's (b)."""
+    from sqlp_tpu_torch import bench as pb
+
+    instances = {}
+    for name in sections:
+        _bench_section(results, name, pb.DEPTHS["cuda"], instances,
+                       "bench_full")
+
+
 # the CLI phases start their subprocesses when they are reached and are
 # waited for together, before the next phase that uses the card in this
 # process (or at the end): the lands runs are host-bound and overlap
@@ -2898,6 +3115,10 @@ def run_phase(ph, args, results, memo):
         phase_small(results)
     elif ph == "surface":
         phase_surface(results)
+    elif ph == "bench":
+        phase_bench(results)
+    elif ph == "bench_full":
+        phase_bench_full(results, args.bench_sections.split(","))
     elif ph == "storm":
         phase_storm(results, args.storm_iters)
     elif ph == "mesh":
@@ -2936,8 +3157,14 @@ def main() -> int:
                     "reference bench runs 1500)")
     ap.add_argument("--phases",
                     default="device,b1,b2,b3,main,main2,replicated,small,"
-                    "storm,certify,cert_polish,mesh,surface,cli,"
+                    "storm,certify,cert_polish,mesh,surface,bench,cli,"
                     "cli_cert,cli_gap,cli_run")
+    ap.add_argument("--bench-sections", default="throughput",
+                    help="bench_full: comma list of the sections of "
+                    "sqlp_tpu_torch/bench.py to run at the reference's "
+                    "depths (throughput, ssn_time_to_gap, "
+                    "storm_time_to_gap, storm_certified, ssn_certified, "
+                    "lands_target_gap)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 

@@ -15,6 +15,7 @@ Port of record: ``sqlp_tpu/cli.py`` (``cmd_solve`` :39-183,
     python -m sqlp_tpu_torch solve lands --replications 4 --target-gap 0.01
     python -m sqlp_tpu_torch ef lands --scenarios 100
     python -m sqlp_tpu_torch evaluate transship --samples 20000
+    python -m sqlp_tpu_torch bench [--skip-sd-gap | --cpu-baseline-only]
 
 runs on the chosen device (``--device``, default ``cuda``; there is no
 silent CPU fallback). ``solve`` runs SD in chunks; at the chunk
@@ -36,7 +37,8 @@ optimality gap (:func:`certify_replications`); with ``--target-gap`` it
 certifies every ``--certify-every`` iterations and stops at the target
 certified gap, ending with one JSON line. ``ef`` solves a sampled
 extensive form, ``evaluate`` estimates the expected cost of a first-stage
-decision. The replicated path refuses ``--proposal-sto`` and a mesh (as
+decision, ``bench`` runs the benchmark sections (``bench.py``). The
+replicated path refuses ``--proposal-sto`` and a mesh (as
 the reference does) and the run-management flags (which the reference's
 replicated path ignores).
 
@@ -594,6 +596,13 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from sqlp_tpu_torch import bench
+    return bench.main([f for f, on in (("--skip-sd-gap", args.skip_sd_gap),
+                                       ("--cpu-baseline-only",
+                                        args.cpu_baseline_only)) if on])
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sqlp_tpu_torch",
@@ -752,6 +761,15 @@ def build_parser() -> argparse.ArgumentParser:
     pv.add_argument("--samples", type=int, default=10_000)
     common(pv)
     pv.set_defaults(fn=cmd_evaluate)
+
+    pb = sub.add_parser("bench", help="run the benchmark sections, one "
+                        "JSON line each (sqlp_tpu_torch/bench.py)")
+    pb.add_argument("--skip-sd-gap", action="store_true",
+                    help="only the LP-throughput section")
+    pb.add_argument("--cpu-baseline-only", action="store_true",
+                    help="run on the CPU at the CPU depths (without it the "
+                         "bench needs a card)")
+    pb.set_defaults(fn=cmd_bench)
     return p
 
 

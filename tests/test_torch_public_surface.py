@@ -69,7 +69,8 @@ def test_port_reexports_jax_names(package):
 
 def test_public_names_import_no_jax_and_build_nothing():
     """Importing the package, then every public name of every package,
-    loads no JAX, no Triton and no kernel library, and leaves CUDA
+    then the CLI and the bench module, loads no JAX, no Triton, no kernel
+    library and not the reference bench.py, and leaves CUDA
     uninitialized; the bare package imports not even torch."""
     code = (
         "import importlib, sys\n"
@@ -79,6 +80,8 @@ def test_public_names_import_no_jax_and_build_nothing():
         "    m = importlib.import_module(p)\n"
         "    [getattr(m, n) for n in m.__all__]\n"
         "import torch\n"
+        "import sqlp_tpu_torch.bench, sqlp_tpu_torch.cli\n"
+        "assert 'bench' not in sys.modules\n"
         "from sqlp_tpu_torch.ops.cuda import build\n"
         "assert build._lib is None and not torch.cuda.is_initialized()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'triton') or "
