@@ -16,19 +16,21 @@
 
 Builds the hand-written CUDA kernels from sqlp_tpu_torch/csrc, holds each
 against its plain PyTorch version at the shapes the paths give it (every
-variant of both PDHG rounds, row-block, cluster, tile, stream and grid,
-wherever the variant takes the shape; the float32 stream and grid rounds
-also to the row-block round's bits, and the tile rounds of both dtypes to the
-bits the first tile design gave at fixed inputs, TILE_DIGESTS), and
+variant of both PDHG rounds, row-block, cluster, tile, stream, grid and
+small, wherever the variant takes the shape; the float32 stream and grid
+rounds and the small rounds of both dtypes also to the row-block round's
+bits, and the tile rounds of both dtypes to the bits the first tile design
+gave at fixed inputs, TILE_DIGESTS), and
 drives five paths with the kernels' launch counts reset just before and
 read just after each: the main path (SD on ssn at the flagship CLI
 settings, then the Monte-Carlo upper bound over 4096 scenarios; run twice,
 `main` and `main2`, whose seeded bounds must agree bitwise) and the
 replicated path (8 lockstep SD replications on ssn under the
 restart-to-average PDHG scheme, the compromise decision, its stratified
-Monte-Carlo bound), and the small path (lands, whose K fits L1 and stays
-on the row-block kernels: a single SD run and 3 replications under the
-average scheme), and the storm path (`storm`: the reference bench's
+Monte-Carlo bound), and the small path (the instances whose K, under
+128 KB, takes the small kernels: lands, a single SD run and 3
+replications under the average scheme; transship and baa99-20, a single
+float32 run each; a 1024-row MC panel each), and the storm path (`storm`: the reference bench's
 storm_time_to_gap, SD on storm in float32 from the projected x0 = 0 and
 its 8192-sample stratified MC bound, held to a band around the
 literature optimum; then 30 float64 iterations and a 4096-row panel; its
@@ -45,7 +47,7 @@ the total rounds within 5 % of the row-block kernel's and every mean
 within the half-width. It then runs the lands CLI against the known
 optimum 381.8533. The certified path (`certify`): 8 lockstep SD
 replications on ssn at the flagship settings, the compromise decision,
-then the CLI's own certify tail: 8 extensive forms of CERT_FRESH (1000)
+then the CLI's own certify tail: 8 extensive forms of CERT_FRESH (600)
 fresh Latin-hypercube scenarios each (plain torch matmuls), their f64
 continuation, the dual projection, the host LPs, the decision picked
 among the compromise and the EF argmins on a shared panel, its bound on
@@ -68,12 +70,12 @@ first-stage feasible, B1's tile kernel and batched B3 launched; then B3
 is held against its plain version at the projection QP's and the
 decision master's own operands. `cli_gap` runs the lands CLI's
 `--target-gap 0.01` (stopped at a certified gap within its 2 looks) and
-the ssn CLI's periodic loop (GAP_SSN_ITERS = 60 iterations,
-`--eval-every 30 --sharpen-every 30`: one sharpening, at iteration 30)
+the ssn CLI's periodic loop (GAP_SSN_ITERS = 40 iterations,
+`--eval-every 20 --sharpen-every 20`: one sharpening, at iteration 20)
 at once, each process reporting its own kernel launches; the CLI phases
 start their runs together. `cli_run` runs, beside them, run management
-and importance sampling through the CLI: a resumed ssn run (30 + 30
-iterations) held bit for bit to an uninterrupted one (RESUME_ITERS = 60,
+and importance sampling through the CLI: a resumed ssn run (20 + 20
+iterations) held bit for bit to an uninterrupted one (RESUME_ITERS = 40,
 with a JSONL log), ssn drawn from a defensive mixture proposal under
 `--profile` (the trace must name B1's cluster and B3's kernels), lands
 from the uniform proposal under the reference's gates; meanwhile it
@@ -311,8 +313,16 @@ _PDHG_ARGS = {"halpern": 13, "average": 10}
 # its ladder 4096, 1024, 256; 16 and a ragged tile of 100; a ragged 1000
 # with per-element q, a ragged last part and tile of the grid kernel),
 # lands and per-element q (a ragged tile too); (lands, 2) is the mesh
-# phase's SD panel, on the row-block kernel in f64
+# phase's SD panel in f64; transship's and baa99-20's SD panel, the
+# replications' 16 rows and the MC panels of 1024 and 4096 rows, and
+# baa99-20 at a ragged 1000 rows with per-element q (the small kernels'
+# ragged last group)
 _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
+               ("transship", 2, False), ("transship", 16, False),
+               ("transship", 1024, False), ("transship", 4096, False),
+               ("baa99-20", 2, False), ("baa99-20", 16, False),
+               ("baa99-20", 1024, False), ("baa99-20", 4096, False),
+               ("baa99-20", 1000, True),
                ("ssn", 2, False), ("ssn", 16, False),
                ("ssn", 256, False), ("ssn", 512, False),
                ("ssn", 768, False), ("ssn", 1024, False),
@@ -324,7 +334,9 @@ _PDHG_CASES = (("lands", 8, False), ("lands", 2, False),
                ("ssn", 2, True), ("ssn", 100, True))
 # the polish routes' float32 panels, Halpern only: the decision polish's
 # 8192 rows, the level bundle's 8 x CERT_FRESH (round 1) and 8 x 2 x
-# CERT_FRESH (later rounds) and the 16384 of its 8 x 2 x 1024
+# CERT_FRESH (later rounds) at CERT_FRESH = 1000 (its value before the
+# small kernels' cases needed the script's time)
+# and the 16384 of its 8 x 2 x 1024
 _POLISH_CASES = (("ssn", 8000, False), ("ssn", 8192, False),
                  ("ssn", 16000, False), ("ssn", 16384, False))
 # the bench's float32 panels, Halpern only, in the plan's variant:
@@ -334,7 +346,8 @@ _BENCH_CASES = (("storm", 8192, False),)
 # a variant's entry in the kernels line: the wrapper's counter and the
 # shape and dtype its time is reported at (the path's own: the SD panel of
 # the main path is 2 rows, of the replicated path 16, the MC panel 4096;
-# the row-block kernels keep lands on the small path; the stream kernels
+# the small kernels keep lands on the small path (the row-block kernels,
+# their oracle, are reported at the same shape); the stream kernels
 # storm's float64 panels, 256 rows of the Halpern legs and the average
 # leg's SD panel of 2; the grid kernels storm's 4096-row float32 rung)
 _PDHG_ENTRY = {
@@ -343,22 +356,28 @@ _PDHG_ENTRY = {
     ("halpern", "tile"): ("pdhg_halpern_tile", "ssn", 4096, "float32"),
     ("halpern", "stream"): ("pdhg_halpern_stream", "storm", 256, "float64"),
     ("halpern", "grid"): ("pdhg_halpern_grid", "storm", 4096, "float32"),
+    ("halpern", "small"): ("pdhg_halpern_small", "lands", 8, "float32"),
     ("average", "rows"): ("pdhg_average_round", "lands", 8, "float32"),
     ("average", "cluster"): ("pdhg_average_cluster", "ssn", 16, "float32"),
     ("average", "tile"): ("pdhg_average_tile", "ssn", 4096, "float32"),
     ("average", "stream"): ("pdhg_average_stream", "storm", 2, "float64"),
     ("average", "grid"): ("pdhg_average_grid", "storm", 4096, "float32"),
+    ("average", "small"): ("pdhg_average_small", "lands", 8, "float32"),
 }
-# the variants admitted on float32 panels only while they are the
-# row-block round's bits, and the dtypes each is admitted for
-_ROWBLOCK_BITS = {"stream": "_STREAM_ITEMSIZES", "grid": "_GRID_ITEMSIZES"}
+# the variants admitted only while they are the row-block round's bits,
+# and the dtypes each is admitted for (the stream and grid kernels are
+# held to those bits in float32, the small kernels in both dtypes)
+_ROWBLOCK_BITS = {"stream": "_STREAM_ITEMSIZES", "grid": "_GRID_ITEMSIZES",
+                  "small": "_SMALL_ITEMSIZES"}
+_ROWBLOCK_BITS_F64 = ("small",)
 
 
 def _variants(args, scheme):
     """A round's variants to check at these operands: the plan's first,
-    then the row-block kernel and the cluster, tile, stream and grid
-    kernels wherever they take the shape (the grid kernel: float32 panels
-    of a K that no tile shape takes)."""
+    then the row-block kernel and the cluster, tile, stream, grid and
+    small kernels wherever they take the shape (the grid kernel: float32
+    panels of a K that no tile shape takes; the small kernel: a K under
+    the cluster kernels' threshold)."""
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
     m, n = args[0].shape
     B = args[5].shape[0]
@@ -371,10 +390,13 @@ def _variants(args, scheme):
     stream = pk._stream_shape(B, m, n, it, scheme) if tile is None else None
     grid = pk._grid_shape(B, m, n, it) if tile is None \
         and m * n * it >= pk._CLUSTER_MIN_K_BYTES else None
+    small = pk._small_shape(B, m, n, it) \
+        if m * n * it < pk._CLUSTER_MIN_K_BYTES else None
     for alt in (rows, ("cluster",) + shape if shape else None,
                 ("tile",) + tile if tile else None,
                 ("stream",) + stream if stream else None,
-                ("grid",) + grid if grid else None):
+                ("grid",) + grid if grid else None,
+                ("small",) + small if small else None):
         if alt is not None and alt not in out:
             out.append(alt)
     return out
@@ -388,10 +410,11 @@ def phase_pdhg(results, phase):
     the bench's storm panel of 8192 rows (only the plan's variant and
     the row-block kernel there): every
     variant the shape admits, timed in the same call, two launches bitwise
-    equal. The float32 stream and grid variants are also held to the
-    row-block kernel's bits: where the plan admits them (rule (a) of their
-    admission, pdhg_kernel._STREAM_ITEMSIZES and _GRID_ITEMSIZES), a
-    difference fails the phase. Last, the scheme's tile kernel against
+    equal. The float32 stream and grid variants and the small variant in
+    both dtypes are also held to the row-block kernel's bits: where the
+    plan admits them (rule (a) of their admission,
+    pdhg_kernel._STREAM_ITEMSIZES, _GRID_ITEMSIZES and _SMALL_ITEMSIZES),
+    a difference fails the phase. Last, the scheme's tile kernel against
     TILE_DIGESTS, bit for bit."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
@@ -433,17 +456,18 @@ def phase_pdhg(results, phase):
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, o) for a, o in zip(again, out))
                 bits = ""
-                if plan[0] in _ROWBLOCK_BITS and dname == "float32":
+                if plan[0] in _ROWBLOCK_BITS and (
+                        dname == "float32" or plan[0] in _ROWBLOCK_BITS_F64):
                     rows = kernel(*args, n_inner, plan=variants[[
                         v[0] for v in variants].index("rows")])
                     torch.cuda.synchronize()
                     bitwise = all(torch.equal(a, o)
                                   for a, o in zip(rows, out))
                     bits = f"bitwise_vs_rows={bitwise} "
-                    if not bitwise and 4 in getattr(
+                    if not bitwise and args[0].element_size() in getattr(
                             pk, _ROWBLOCK_BITS[plan[0]]):
                         raise AssertionError(
-                            f"{name} {plan} is admitted on float32 panels "
+                            f"{name} {plan} is admitted on {dname} panels "
                             f"as the row-block round's bits, but differs "
                             f"from them on {inst} B={B}")
                 ms = device_ms(lambda: kernel(*args, n_inner, plan=plan),
@@ -451,6 +475,10 @@ def phase_pdhg(results, phase):
                 call = time_ms(lambda: kernel(*args, n_inner, plan=plan),
                                reps)
                 waves = ""
+                if plan[0] == "small":
+                    groups = pk._small_groups(B, *plan[1:], *args[0].shape,
+                                              args[0].element_size())
+                    waves = f"groups={groups} "
                 if plan[0] == "tile":
                     it = args[0].element_size()
                     occ = pk._tile_clusters_per_wave(
@@ -890,21 +918,30 @@ def _sweep_round(scheme, inst, B, dtype):
     dname = str(dtype).replace("torch.", "")
     plans = [("rows", pk._rows_per_block(
         f"pdhg_{scheme}_round", B, pk._row_values(m, n, scheme) * it))]
-    if B <= 1024:       # past that a cluster per few rows takes seconds
+    if m * n * it < pk._CLUSTER_MIN_K_BYTES:
+        # the small kernel's group widths (up to 4 times the plan's) and
+        # rows a group
+        own = pk._small_shape(B, m, n, it)
+        plans += [("small", W, R) for W in pk._SMALL_WARPS
+                  for R in pk._SMALL_ROWS
+                  if own and W <= 4 * own[0] and R <= B
+                  and pk._small_fits(W, R, 1, m, n, it)]
+    elif B <= 1024:     # past that a cluster per few rows takes seconds
         plans += [("cluster", C, R) for C in pk._CLUSTER_SIZES
                   for R in pk._CLUSTER_ROWS
                   if R <= B and pk._cluster_fits(C, R, m, n, it, scheme)]
+    big = m * n * it >= pk._CLUSTER_MIN_K_BYTES
     plans += [("tile", C, pk._TILE_ARITH[it]) for C in pk._CLUSTER_SIZES
-              if pk._tile_fits(C, m, n, it, pk._TILE_ARITH[it])]
-    tile = pk._tile_shape(B, m, n, it, scheme)
+              if big and pk._tile_fits(C, m, n, it, pk._TILE_ARITH[it])]
+    tile = pk._tile_shape(B, m, n, it, scheme) if big else None
     if tile is not None and it == 4:
         # the float32 tile height at the plan's cluster size
         own = pk._tile_rows(B, tile[0], m, n, it, scheme)
         plans += [("tile",) + tile + (tm,) for tm in (16, 12, 8, 4, 2)
                   if tm != own and tm <= -(-B // 2)]
     plans += [("stream", C, pk._STREAM_TM) for C in pk._STREAM_SIZES
-              if pk._stream_fits(C, pk._STREAM_TM, m, n, it)]
-    if tile is None and m * n * it >= pk._CLUSTER_MIN_K_BYTES:
+              if big and pk._stream_fits(C, pk._STREAM_TM, m, n, it)]
+    if tile is None and big:
         # primal tile heights, the panel in 1, 2 and 4 parts
         plans += [("grid", BM, P) for BM in pk._GRID_BM for P in (1, 2, 4)
                   if pk._grid_fits(BM, it, P) and (P - 1) * 128 < B]
@@ -918,6 +955,8 @@ def _sweep_round(scheme, inst, B, dtype):
             occ = pk._tile_clusters_per_wave(plan[1], m, n, it, scheme)
         elif plan[0] == "stream":
             occ = pk._stream_clusters_per_wave(plan[1], m, n, it, scheme)
+        elif plan[0] == "small":
+            occ = pk._small_groups(B, *plan[1:], m, n, it)
         else:
             occ = None
         tag = f"[sweep] {scheme} {inst} B={B} {dname} {plan}"
@@ -937,8 +976,9 @@ def _sweep_round(scheme, inst, B, dtype):
             passes = f"{-(-(-(-B // tm)) // occ)} tm={tm}"
         if plan[0] == "stream":     # waves of one tile per cluster
             passes = -(-(-(-B // pk._STREAM_TM)) // occ)
+        occ_tag = "groups" if plan[0] == "small" else "max_active_clusters"
         log(f"{tag}: kernel_ms={ms:.4f} max_rel_err={err:.2e} "
-            f"max_active_clusters={occ} passes={passes}"
+            f"{occ_tag}={occ} passes={passes}"
             f"{' <- plan' if plan == chosen else ''} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -946,17 +986,34 @@ def _sweep_round(scheme, inst, B, dtype):
                                  f"version on {inst} B={B} {dname}")
 
 
-def phase_sweep():
+# the sweep's instances of a K under 128 KB and their panels: the SD
+# step's 2 rows, lands' 8, the replications' 16, the ladder's 256, 1024
+# and 4096
+SWEEP_SMALL = ("lands", "transship", "baa99-20")
+SWEEP_SMALL_SIZES = (2, 8, 16, 256, 1024, 4096)
+
+
+def phase_sweep(instances):
     """Every variant the kernels admit, timed at the shapes their plans
     decide between (one call, one card): both PDHG rounds' row-block
     kernels against their cluster kernels (cluster sizes, rows per
     cluster), tile kernels (cluster sizes) and, for storm, stream kernels
     (cluster sizes) and, in float32, grid kernels (primal tile heights,
-    parts), and B3 over cluster sizes."""
+    parts); for a K under 128 KB against the small kernels (group widths,
+    rows a group); and B3 over cluster sizes. ``instances`` names the
+    instances to sweep (ssn and storm also run the fixed-cost lines and
+    B3)."""
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
     f32, f64 = torch.float32, torch.float64
+    for inst in SWEEP_SMALL:
+        if inst not in instances:
+            continue
+        for scheme in ("halpern", "average"):
+            for dtype in (f32, f64):
+                for B in SWEEP_SMALL_SIZES:
+                    _sweep_round(scheme, inst, B, dtype)
     for scheme, inst, sizes, dtypes in (
             ("halpern", "ssn", (2, 16, 64, 256, 512, 768, 1024, 4096),
              (f32, f64)),
@@ -968,9 +1025,11 @@ def phase_sweep():
              (f32, f64))):
         for dtype in dtypes:
             for B in sizes:
-                _sweep_round(scheme, inst, B, dtype)
+                if inst in instances:
+                    _sweep_round(scheme, inst, B, dtype)
     n_inner = 80
-    phase_b3({"admm_round": {}}, plans="all")
+    if "ssn" in instances or "storm" in instances:
+        phase_b3({"admm_round": {}}, plans="all")
     # each planned kernel's fixed cost (launch, loading its matrices) and
     # its cost per step, from device times at 1 step and at a full round
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
@@ -978,7 +1037,12 @@ def phase_sweep():
                                    ("halpern", "ssn", 2, f64),
                                    ("average", "ssn", 16, f32),
                                    ("halpern", "ssn", 4096, f32),
-                                   ("halpern", "ssn", 4096, f64)):
+                                   ("halpern", "ssn", 4096, f64),
+                                   ("halpern", "lands", 2, f32),
+                                   ("halpern", "lands", 2, f64),
+                                   ("halpern", "baa99-20", 4096, f32)):
+        if inst not in instances:
+            continue
         n_args = _PDHG_ARGS[scheme]
         kernel = getattr(pk, f"pdhg_{scheme}_round")
         args = _pdhg_case(inst, B, dtype)[:n_args]
@@ -989,6 +1053,8 @@ def phase_sweep():
             f"ms, 80 steps {t80:.4f} ms: {1e3 * (t80 - t1) / 79:.2f} us "
             f"per step, {1e3 * (t1 - (t80 - t1) / 79):.1f} us fixed")
     for name, ops64, qp in _b3_cases():
+        if name not in instances:
+            continue
         for dtype in (torch.float32, torch.float64):
             ops = [t.to(dtype).contiguous() for t in ops64]
             C = ak._plan(*ops[0].shape, ops[0].element_size())
@@ -1056,7 +1122,7 @@ def phase_main(results, iters, gate=False, path="main"):
 # error (the reference's half-width: 5,059 at 1500 iterations), and the
 # upper limit is 2 % above it
 STORM_UB = (15_480_000.0, 15_810_000.0)
-STORM_F64_ITERS = 30
+STORM_F64_ITERS = 20            # 30 until the same cut
 # the legs under scheme="average": the f64 leg's SD panel (2 rows) is the
 # one path of pdhg_average_stream, the f32 leg's bound (1024 stratified
 # samples) the one path of pdhg_average_grid
@@ -1371,7 +1437,9 @@ _PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
                   "pdhg_average_cluster": "average_cluster_launches",
                   "pdhg_average_tile": "average_tile_launches",
                   "pdhg_average_stream": "average_stream_launches",
-                  "pdhg_average_grid": "average_grid_launches"}
+                  "pdhg_average_grid": "average_grid_launches",
+                  "pdhg_halpern_small": "small_launches",
+                  "pdhg_average_small": "average_small_launches"}
 
 
 def _reset_counts():
@@ -1574,16 +1642,24 @@ def phase_replicated(results, iters):
 
 
 # SD iterations of each small-path run (40 until the surface phase, which
-# also drives lands through the row-block kernels, needed the time)
+# also drives lands through the small kernels, needed the time)
 SMALL_ITERS = 20
+# the small path's runs: (instance, scheme, replications, x0); transship
+# and baa99-20 from the port's default first-stage point
+SMALL_RUNS = (("lands", "halpern", 1, 5.0), ("lands", "average", 3, 5.0),
+              ("transship", "halpern", 1, None),
+              ("baa99-20", "halpern", 1, None))
 
 
 def phase_small(results):
-    """The small path: lands, whose K (under 1 KB) stays in L1 and on the
-    row-block kernels. A single SD run under the Halpern scheme with its
+    """The small path: the instances whose K (under 128 KB) takes the
+    small kernels. lands: a single SD run under the Halpern scheme with its
     MC bound, then 3 lockstep replications under the average scheme with
-    theirs, SMALL_ITERS iterations each; each driven with the counts reset
-    before and read after."""
+    theirs; transship and baa99-20: a single run under the Halpern scheme
+    in float32 at the port's defaults and its MC bound; SMALL_ITERS
+    iterations and a 1024-row panel each, each driven with the counts reset
+    before and read after. Fails on a non-finite bound, or unless the
+    scheme's small kernel launched."""
     import numpy as np
     import torch
     from sqlp_tpu_torch.config import PDHGConfig, SDConfig
@@ -1591,30 +1667,30 @@ def phase_small(results):
     from sqlp_tpu_torch.sd.driver import SDReplications, SDSolver
 
     dev = torch.device("cuda")
-    inst = load_instance("lands", dtype=torch.float32, device=dev)
-    x0 = np.full(inst.n1, 5.0)
-    for scheme, key in (("halpern", "pdhg_halpern_round"),
-                        ("average", "pdhg_average_round")):
+    for name, scheme, reps, x0 in SMALL_RUNS:
+        inst = load_instance(name, dtype=torch.float32, device=dev)
+        x0 = None if x0 is None else np.full(inst.n1, x0)
         cfg = SDConfig(dtype="float32", pdhg=PDHGConfig(scheme=scheme))
         _reset_counts()
         t0 = time.perf_counter()
-        if scheme == "halpern":
+        if reps == 1:
             solver = SDSolver(inst, cfg, x0=x0, seed=0)
         else:
-            solver = SDReplications(inst, cfg, n_replications=3, x0=x0,
+            solver = SDReplications(inst, cfg, n_replications=reps, x0=x0,
                                     seed=0)
         solver.run(SMALL_ITERS)
-        x = None if scheme == "halpern" else solver.x_incumbents[0]
+        x = None if reps == 1 else solver.x_incumbents[0]
         ub, hw, n = solver.evaluate_ci(x=x, min_samples=1024,
                                        max_samples=1024, seed=1)
         torch.cuda.synchronize()
         counts = _counts()
-        log(f"[small] lands scheme={scheme}: {SMALL_ITERS} iterations + a "
+        log(f"[small] {name} scheme={scheme}: {SMALL_ITERS} iterations + a "
             f"{n}-row MC panel in {time.perf_counter() - t0:.2f}s, "
             f"mc_ub={ub:.4f} +- {hw:.4f}; launches by rung: {_by_rung()}")
         if not (math.isfinite(ub) and math.isfinite(hw)):
-            raise AssertionError(f"non-finite lands bound {ub} +- {hw}")
-        _record_launches(results, counts, (key,), f"small {scheme}")
+            raise AssertionError(f"non-finite {name} bound {ub} +- {hw}")
+        _record_launches(results, counts, (f"pdhg_{scheme}_small",),
+                         f"small {name} {scheme}")
 
 
 # the surface phase: the port's packages, each re-exporting the names of
@@ -1735,7 +1811,7 @@ def phase_surface(results):
             raise AssertionError(f"saa_ef_bound {opts}: "
                                  f"{out['host_exact_count']} host re-solves")
     counts = _counts()
-    _record_launches(results, counts, ("pdhg_halpern_round", "admm_round"),
+    _record_launches(results, counts, ("pdhg_halpern_small", "admm_round"),
                      "surface")
 
 
@@ -1745,9 +1821,9 @@ def phase_surface(results):
 # on a 1-D mesh of 2 ranks with the pool sharded, at the flagship
 # capacities
 MESH_LANDS_STEPS = 12
-# 100, then 50, until the storm phase and then the script's time limit
-# needed the time
-MESH_SSN_ITERS = 25
+# 100, then 50, then 25 until the storm phase, the script's time limit
+# and then the small kernels' cases needed the time
+MESH_SSN_ITERS = 15
 MESH_ATOL = 1e-8
 
 
@@ -1879,7 +1955,7 @@ def _mesh_lands(tag, device_of, results=None):
         log(f"[{tag}] lands {name} ({backend.group(1) if backend else '?'})"
             f" launches: {json.dumps(c)}")
         if results is not None:
-            _record_launches(results, c, ("pdhg_halpern_round",
+            _record_launches(results, c, ("pdhg_halpern_small",
                                           "admm_round"),
                              f"mesh_lands_{name}")
         if "chip_smoke replicated:" not in err:
@@ -1991,9 +2067,10 @@ CERT_EF_TOL = 1e-5
 CERT_DUAL_INFEAS = 1e-9
 CERT_LB_TO_EF = 0.1
 # fresh scenarios per replication of the certify phase's EFs, which
-# cert_polish reuses: 3000 until the script outgrew its 1200 s (the EF's
-# time and the bundle's panels scale with it)
-CERT_FRESH = 1000
+# cert_polish reuses: 3000 until the script outgrew its 1200 s, then 1000
+# until the default script took 1168.6 s on a slow host with the small
+# kernels' cases (the EF's time and the bundle's panels scale with it)
+CERT_FRESH = 600
 
 
 def phase_certify(results, iters, eval_samples):
@@ -2597,7 +2674,8 @@ def start_cli_gap(results):
             counts = json.loads(m.group(1))
             log(f"[cli_gap] {name} launches: {json.dumps(counts)}")
             b1 = [k for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
-                              "pdhg_halpern_tile") if counts[k]]
+                              "pdhg_halpern_tile", "pdhg_halpern_small")
+                  if counts[k]]
             if not b1:
                 raise AssertionError(f"cli_gap {name}: B1 never launched")
             _record_launches(results, counts, b1 + ["admm_round"],
@@ -2608,9 +2686,10 @@ def start_cli_gap(results):
 # iterations of cli_gap's periodic ssn run and of cli_run's uninterrupted
 # ssn run (the resumed one runs half, then half again), each cut from 200
 # to 100 when the storm phase took the default script near its 1200 s,
-# then to 60 when it outgrew them
-GAP_SSN_ITERS = 60
-RESUME_ITERS = 60
+# then to 60 when it outgrew them, then to 40 when the small kernels'
+# cases took it past 1000 s on a slow host
+GAP_SSN_ITERS = 40
+RESUME_ITERS = 40
 # iterations of cli_run's lands importance-sampling run, 200 in the
 # reference's test (tests/test_sampling.py:270-295) and here until the
 # script outgrew its 1200 s
@@ -2871,7 +2950,8 @@ def start_cli_run(results):
                                            err)[-1])
             log(f"[cli_run] {name} launches: {json.dumps(counts)}")
             b1 = [k for k in ("pdhg_halpern_round", "pdhg_halpern_cluster",
-                              "pdhg_halpern_tile") if counts[k]]
+                              "pdhg_halpern_tile", "pdhg_halpern_small")
+                  if counts[k]]
             if not b1:
                 raise AssertionError(f"cli_run {name}: B1 never launched")
             _record_launches(results, counts, b1 + ["admm_round"],
@@ -2937,7 +3017,7 @@ _BENCH_KERNELS = {
     "storm_certified": ("pdhg_halpern_grid", "admm_round"),
     "ssn_certified": ("pdhg_halpern_cluster", "pdhg_halpern_tile",
                       "admm_round"),
-    "lands_target_gap": ("pdhg_halpern_round", "admm_round"),
+    "lands_target_gap": ("pdhg_halpern_small", "admm_round"),
 }
 # a kind's numbers that must be finite, and its (lower bound, upper bound,
 # half-width), the lower at most the upper plus the half-width
@@ -3092,7 +3172,7 @@ def run_phase(ph, args, results, memo):
     elif ph == "b3":
         phase_b3(results)
     elif ph == "sweep":
-        phase_sweep()
+        phase_sweep(args.sweep_instances.split(","))
     elif ph == "digests":
         phase_digests()
     elif ph == "profile":
@@ -3144,14 +3224,16 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=200,
                     help="SD iterations of the ssn main path")
     ap.add_argument("--rep-iters", type=int, default=60,
-                    help="SD iterations of the replicated path")
-    ap.add_argument("--cert-iters", type=int, default=50,
+                    help="SD iterations of the replicated path (its f32 "
+                    "gate failed at 40: 7.63 %% more rounds)")
+    ap.add_argument("--cert-iters", type=int, default=30,
                     help="SD iterations of the certified path (100 until "
-                    "the script outgrew its 1200 s; the EF route does not "
-                    "read them)")
-    ap.add_argument("--cert-eval-samples", type=int, default=8192,
+                    "the script outgrew its 1200 s, then 50; the EF route "
+                    "does not read them)")
+    ap.add_argument("--cert-eval-samples", type=int, default=4096,
                     help="samples of the certified path's MC panels (16384 "
-                    "until the storm phase needed the script's time)")
+                    "until the storm phase needed the script's time, then "
+                    "8192)")
     ap.add_argument("--storm-iters", type=int, default=200,
                     help="SD iterations of the storm path's f32 leg (the "
                     "reference bench runs 1500)")
@@ -3159,6 +3241,10 @@ def main() -> int:
                     default="device,b1,b2,b3,main,main2,replicated,small,"
                     "storm,certify,cert_polish,mesh,surface,bench,cli,"
                     "cli_cert,cli_gap,cli_run")
+    ap.add_argument("--sweep-instances",
+                    default="ssn,storm,lands,transship,baa99-20",
+                    help="sweep: comma list of the instances whose shapes "
+                    "it times (ssn and storm also time B3)")
     ap.add_argument("--bench-sections", default="throughput",
                     help="bench_full: comma list of the sections of "
                     "sqlp_tpu_torch/bench.py to run at the reference's "
@@ -3187,11 +3273,13 @@ def main() -> int:
                    ("pdhg_halpern_tile", halpern),
                    ("pdhg_halpern_stream", halpern),
                    ("pdhg_halpern_grid", halpern),
+                   ("pdhg_halpern_small", halpern),
                    ("pdhg_average_round", average),
                    ("pdhg_average_cluster", average),
                    ("pdhg_average_tile", average),
                    ("pdhg_average_stream", average),
                    ("pdhg_average_grid", average),
+                   ("pdhg_average_small", average),
                    ("admm_round", "sqlp_tpu/ops/pallas/admm_kernel.py:95"))}
     t0 = time.perf_counter()
     pending = []

@@ -118,15 +118,9 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // the row-block kernel's roundings (its expressions as nvcc contracts
-// them), pinned
-__device__ __forceinline__ float blend(float w, float x, float y) {
-  return __fmaf_rn(__fsub_rn(1.f, w), y, __fmul_rn(w, x));
-}
-// the Halpern weight w = (k + 1) / (k + 2), k = kh + t
-__device__ __forceinline__ float halpern_w(float kh, int t) {
-  const float k = __fadd_rn(kh, static_cast<float>(t));
-  return __fdiv_rn(__fadd_rn(k, 1.f), __fadd_rn(k, 2.f));
-}
+// them), pinned in pdhg_common.cuh
+using pdhg::blend;
+using pdhg::halpern_w;
 // where column j lies in a row of the permuted Yb and K: position 4 l + k
 // of its block of 128 holds column 32 k + l
 __device__ __forceinline__ int residue_major(int j) {

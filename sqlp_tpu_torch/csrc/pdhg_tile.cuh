@@ -285,26 +285,13 @@ __device__ __forceinline__ void tile_product(const double* As,
   }
 }
 
-// The epilogues' roundings, pinned to the ones nvcc's contraction gave
-// the first design (its SASS): y - tau (q - g) as fma(-tau, q - g, y),
-// l + sig (h - s) as fma(sig, h - s, l), and the Halpern blend
-// w x + (1 - w) y as fma(1 - w, y, w x) with w x rounded
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-template <typename T>
-__device__ __forceinline__ T blend(T w, T x, T y) {
-  return fma_rn(T(1) - w, y, mul_rn(w, x));
-}
+// The epilogues' roundings, pinned (pdhg_common.cuh) to the ones nvcc's
+// contraction gave the first design (its SASS): y - tau (q - g) as
+// fma(-tau, q - g, y), l + sig (h - s) as fma(sig, h - s, l), and the
+// Halpern blend w x + (1 - w) y as fma(1 - w, y, w x) with w x rounded
+using pdhg::blend;
+using pdhg::fma_rn;
+using pdhg::mul_rn;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

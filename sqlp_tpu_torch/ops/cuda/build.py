@@ -28,9 +28,10 @@ _SOURCES = ("pdhg_halpern_round.cu", "pdhg_halpern_cluster.cu",
             "pdhg_halpern_grid.cu", "pdhg_average_round.cu",
             "pdhg_average_cluster.cu", "pdhg_average_tile.cu",
             "pdhg_average_stream.cu", "pdhg_average_grid.cu",
+            "pdhg_halpern_small.cu", "pdhg_average_small.cu",
             "admm_round.cu")
 _HEADERS = ("pdhg_common.cuh", "pdhg_cluster.cuh", "pdhg_tile.cuh",
-            "pdhg_stream.cuh", "pdhg_grid.cuh")
+            "pdhg_stream.cuh", "pdhg_grid.cuh", "pdhg_small.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "pdhg_average_tile": [_I] * 3 + _AVERAGE,
     "pdhg_halpern_stream": [_I] * 3 + _HALPERN,
     "pdhg_average_stream": [_I] * 3 + _AVERAGE,
+    "pdhg_halpern_small": [_I] * 3 + _HALPERN,
+    "pdhg_average_small": [_I] * 3 + _AVERAGE,
     "admm_round": [_I] + [_P] * 13 + [_I] * 4 + [_D, _D, _P],
 }
 # float32 only: BM, P, ldk, mK, then Kr and the scratch Ls, Ybr
@@ -158,6 +161,8 @@ def load() -> ctypes.CDLL:
             lib.pdhg_stream_smem.restype = ctypes.c_longlong
             lib.pdhg_grid_smem.argtypes = [_I]
             lib.pdhg_grid_smem.restype = ctypes.c_longlong
+            lib.pdhg_small_smem.argtypes = [_I] * 6
+            lib.pdhg_small_smem.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

@@ -11,7 +11,7 @@ Two rounds, one per restart scheme of ``solve_batch``:
   :106-147, 265-330); plain version :func:`pdhg_average_round_ref` (the
   loop of ``sqlp_tpu/ops/pdhg.py:330-340``).
 
-Each has five kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
+Each has six kernel variants under ``sqlp_tpu_torch/csrc/`` that compute
 the same function, and :func:`_plan` picks one from the shapes, the dtype
 and the card's cluster occupancy:
 
@@ -36,9 +36,13 @@ and the card's cluster occupancy:
   launches over the whole panel (cut into P parts, at most 4, on streams
   of their own), primal tiles of BM rows x 128 columns and dual tiles of
   32 rows x 16 constraints; bit for bit the row-block round;
+- ``("small", W, R)``: ``pdhg_{halpern,average}_small.cu`` (both from
+  ``pdhg_small.cuh``), a K under ``_CLUSTER_MIN_K_BYTES`` (lands,
+  transship, baa99-20): K resident in a block's shared memory, groups of
+  W warps carrying R batch rows each, :func:`_small_groups` groups a
+  block; bit for bit the row-block round;
 - ``("rows", ROWS)``: ``pdhg_{halpern,average}_round.cu``, the row-block
-  kernels (K read from L2) for a K small enough for L1, and for what no
-  other variant takes.
+  kernels (K read from L2) for what no other variant takes.
 
 Each source's header says what bounds it on the card and how the design
 answers that. A wrapper launches its kernel for CUDA tensors and runs the
@@ -71,6 +75,8 @@ stream_launches = 0             # pdhg_halpern_round, stream variant
 average_stream_launches = 0     # pdhg_average_round, stream variant
 grid_launches = 0               # pdhg_halpern_round, grid variant
 average_grid_launches = 0       # pdhg_average_round, grid variant
+small_launches = 0              # pdhg_halpern_round, small variant
+average_small_launches = 0      # pdhg_average_round, small variant
 # the same launches by (counter, B, itemsize): which rung of a path went
 # through which variant
 launches_by_shape = collections.Counter()
@@ -150,6 +156,20 @@ _GRID_DUAL = (32, 16)
 _GRID_STAGES = 3
 _GRID_M_ROUND = 16
 _GRID_B_ROUND = 128
+# the small kernels (csrc/pdhg_small.cuh), for a K under
+# _CLUSTER_MIN_K_BYTES: warps of a group, batch rows of a group, warps of
+# a block; _small_shape's thresholds
+# the dtypes whose small variant the plan gives panels: both, while it is
+# bit for bit the row-block round (chip_smoke.py's b1 and b2 hold it so)
+_SMALL_ITEMSIZES = (4, 8)
+_SMALL_WARPS = (1, 2, 4, 8, 16)
+_SMALL_ROWS = (1, 2, 4)
+_SMALL_MAX_WARPS = 16
+_SMALL_TINY_N, _SMALL_TINY_M = 32, 8    # the tiny layout's largest K
+_SMALL_COLS_PER_WARP = 16       # n / this: a latency-bound group's warps
+_SMALL_MAX_LAT_WARPS = 8        # a group's warps at most (the sweep)
+_SMALL_LATENCY_ROWS = 2         # rows an SM up to which a group has 1 row
+_SMALL_THROUGHPUT_ROWS = 8      # rows an SM past which W drops to W / 4
 
 
 @functools.lru_cache(maxsize=1)
@@ -500,20 +520,91 @@ def _stream_shape(B: int, m: int, n: int, itemsize: int,
     return min(fit, key=lambda C: (cost(C), -C)), _STREAM_TM
 
 
+def _small_smem(R: int, G: int, m: int, n: int, itemsize: int,
+                q_rows: int = 1) -> int:
+    """Dynamic shared memory of a small kernel's block of G groups of R
+    rows, in bytes (mirrors csrc/pdhg_small.cuh:smem_bytes; the same under
+    either scheme): K [mp, ldk], lb, ub and a shared q [np], then for each
+    row Y, its anchor or sum, Yb, a per-row q (``q_rows``) [np] and L, its
+    anchor or sum, ht [mp]; then is_eq in bytes. mp and np are m and n
+    padded to multiples of 4 and ldk is n, or 8, 32 and 32 elements and
+    16 bytes in the tiny layout (n up to _SMALL_TINY_N, m up to
+    _SMALL_TINY_M)."""
+    tiny = n <= _SMALL_TINY_N and m <= _SMALL_TINY_M
+    mp, np_, ldk = ((_SMALL_TINY_M, _SMALL_TINY_N,
+                     _SMALL_TINY_N + 16 // itemsize) if tiny
+                    else (_up4(m), _up4(n), n))
+    fixed = mp * ldk + (2 if q_rows else 3) * np_
+    row = (4 if q_rows else 3) * np_ + 3 * mp
+    return (fixed + G * R * row) * itemsize + _up4(m)
+
+
+def _small_fits(W: int, R: int, G: int, m: int, n: int, itemsize: int,
+                q_rows: int = 1) -> bool:
+    """The small kernel takes groups of W warps and R rows, G a block, at
+    these shapes (per-row q assumed unless ``q_rows`` is 0)."""
+    return (W in _SMALL_WARPS and R in _SMALL_ROWS and isinstance(G, int)
+            and G >= 1 and G * W <= _SMALL_MAX_WARPS and m > 0 and n > 0
+            and _small_smem(R, G, m, n, itemsize, q_rows) <= _SMEM_MAX)
+
+
+def _small_groups(B: int, W: int, R: int, m: int, n: int,
+                  itemsize: int) -> int:
+    """Groups a block of the small kernel carries for a [B] panel: as many
+    as the block's warps and shared memory (per-row q assumed) allow while
+    the panel still gives every SM a block (each block copies K once for
+    all its rows); at least 1."""
+    rows_per_sm = -(-B // _sm_count())
+    G = 1
+    while (G * 2 * W <= _SMALL_MAX_WARPS and G * 2 * R <= rows_per_sm
+           and _small_fits(W, R, G * 2, m, n, itemsize)):
+        G *= 2
+    return G
+
+
+def _small_shape(B: int, m: int, n: int, itemsize: int):
+    """(W, R) of the small variant for a [B] panel, or None where one group
+    of a row does not fit a block. From the sweep (chip_smoke.py --phases
+    sweep, PERF.md §6): W_lat is n / 16 warps rounded up to a power of 2,
+    at most 8 (lands 1, transship 8, baa99-20 8). While the panel gives
+    each SM at most 2 rows, a group carries 1 row on W_lat warps (latency
+    bounds the step); up to 8 rows an SM, 2 rows (the tiny layout) or 4 on
+    W_lat warps; past that 4 rows on a quarter of them, so more rows share
+    each block's copy of K. Every shape it gives measured faster than the
+    row-block kernel in the sweep."""
+    W = next((w for w in _SMALL_WARPS if _SMALL_COLS_PER_WARP * w >= n),
+             _SMALL_MAX_LAT_WARPS)
+    W = min(W, _SMALL_MAX_LAT_WARPS)
+    if not _small_fits(W, 1, 1, m, n, itemsize):
+        return None
+    rows_per_sm = -(-B // _sm_count())
+    if rows_per_sm <= _SMALL_LATENCY_ROWS:
+        return W, 1
+    tiny = n <= _SMALL_TINY_N and m <= _SMALL_TINY_M
+    if rows_per_sm <= _SMALL_THROUGHPUT_ROWS:
+        R = 2 if tiny else 4
+    else:
+        W, R = max(1, W // 4), 4
+    while R > 1 and not _small_fits(W, R, 1, m, n, itemsize):
+        R //= 2
+    return W, R
+
+
 @functools.lru_cache(maxsize=512)
 def _plan(B: int, m: int, n: int, itemsize: int,
           scheme: str = "halpern") -> tuple:
     """The variant of the scheme's round for a [B] panel of an [m, n] K:
     ``("cluster", C, R)``, ``("tile", C, arith)``, ``("stream", C, TM)``,
-    ``("grid", BM, P)`` or ``("rows", ROWS)``. A function of the shapes and
-    the dtype's size, and for a K of at least ``_CLUSTER_MIN_K_BYTES`` of
-    the card's cluster occupancy and SM count: a panel that one wave of
-    small clusters holds takes the cluster kernel, a larger one the tile
-    kernel; where no tile shape fits, the grid kernel takes the float32
-    panels the cluster kernel does not (storm's from 85 rows), the stream
-    kernel the float64 ones up to its ``_STREAM_MAX_ROWS``, and what fits
-    none of them the row-block kernel (storm's float64 average round past
-    256 rows)."""
+    ``("grid", BM, P)``, ``("small", W, R)`` or ``("rows", ROWS)``. A
+    function of the shapes, the dtype's size and the card's SM count, and
+    for a K of at least ``_CLUSTER_MIN_K_BYTES`` of the card's cluster
+    occupancy: a panel that one wave of small clusters holds takes the
+    cluster kernel, a larger one the tile kernel; where no tile shape fits,
+    the grid kernel takes the float32 panels the cluster kernel does not
+    (storm's from 85 rows), the stream kernel the float64 ones up to its
+    ``_STREAM_MAX_ROWS``, and what fits none of them the row-block kernel
+    (storm's float64 average round past 256 rows). A smaller K takes the
+    small kernel wherever a group of its rows fits a block."""
     if scheme not in _SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}")
     if m * n * itemsize >= _CLUSTER_MIN_K_BYTES:
@@ -541,6 +632,10 @@ def _plan(B: int, m: int, n: int, itemsize: int,
             return ("grid",) + grid
         if stream is not None:
             return ("stream",) + stream
+    elif itemsize in _SMALL_ITEMSIZES:
+        small = _small_shape(B, m, n, itemsize)
+        if small is not None:
+            return ("small",) + small
     return ("rows", _rows_per_block(f"pdhg_{scheme}_round", B,
                                     _row_values(m, n, scheme) * itemsize))
 
@@ -647,13 +742,23 @@ def _kernel_device(name: str, K: torch.Tensor) -> bool:
     return True
 
 
+def _no_plan_on_cpu(name: str, plan) -> None:
+    """CPU tensors run the plain version, which no plan names: a forced
+    plan raises rather than falling back."""
+    if plan is not None:
+        raise ValueError(f"{name}: plan {plan!r} names a CUDA kernel, but "
+                         f"the operands are CPU tensors (the plain version "
+                         f"takes no plan)")
+
+
 def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
             n_inner: int) -> None:
     """Launch the scheme's kernel variant that ``plan`` names on the
     current stream, raise if the launch is refused, and count it."""
     name = f"pdhg_{scheme}_round"
     if not (isinstance(plan, tuple) and plan
-            and plan[0] in ("rows", "cluster", "tile", "stream", "grid")
+            and plan[0] in ("rows", "cluster", "tile", "stream", "grid",
+                            "small")
             and len(plan) in ((2,) if plan[0] == "rows" else
                               (3, 4) if plan[0] == "tile" else (3,))):
         raise ValueError(f"{name}: unknown plan {plan!r}")
@@ -672,6 +777,16 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
         Kp, ldk = _stream_k(K)
         stem, head = f"pdhg_{scheme}_stream", (C, TM, ldk)
         operands = (Kp,) + tuple(operands[1:])
+    elif plan[0] == "small":
+        W, R = plan[1:]
+        if not (isinstance(W, int) and isinstance(R, int)
+                and _small_fits(W, R, 1, m, n, it)):
+            raise ValueError(f"{name}: no small kernel for {plan!r} at "
+                             f"m={m} n={n} itemsize={it} (W in "
+                             f"{_SMALL_WARPS}, R in {_SMALL_ROWS}, a group "
+                             f"within {_SMEM_MAX} B)")
+        stem = f"pdhg_{scheme}_small"
+        head = (W, R, _small_groups(B, W, R, m, n, it))
     elif plan[0] == "grid":
         BM, P = plan[1:]
         if not (isinstance(BM, int) and isinstance(P, int)
@@ -719,6 +834,8 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
                ("average", "tile"): "average_tile_launches",
                ("average", "stream"): "average_stream_launches",
                ("average", "grid"): "average_grid_launches",
+               ("halpern", "small"): "small_launches",
+               ("average", "small"): "average_small_launches",
                }[scheme, plan[0]]
     globals()[counter] += 1
     launches_by_shape[counter, B, it] += 1
@@ -733,10 +850,12 @@ def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,
     sentinels); is_eq [m] bool; ht [B, m]; tau, sig, kh [B]; Y, Yanc
     [B, n]; L, Lanc [B, m]. CUDA tensors launch the kernel variant that
     ``plan`` names (default :func:`_plan` of the shapes), CPU tensors run
-    the plain version; anything else raises. A refused launch raises.
+    the plain version (and raise if a plan is forced); anything else
+    raises. A refused launch raises.
     """
     name = "pdhg_halpern_round"
     if not _kernel_device(name, K):
+        _no_plan_on_cpu(name, plan)
         return pdhg_halpern_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y,
                                       L, kh, Yanc, Lanc, n_inner)
     m, n = K.shape
@@ -766,10 +885,12 @@ def pdhg_average_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L,
     Operands as for :func:`pdhg_halpern_round` without the Halpern step
     count and anchors. CUDA tensors launch the kernel variant that ``plan``
     names (default :func:`_plan` of the shapes under the average scheme),
-    CPU tensors run the plain version; anything else raises.
+    CPU tensors run the plain version (and raise if a plan is forced);
+    anything else raises.
     """
     name = "pdhg_average_round"
     if not _kernel_device(name, K):
+        _no_plan_on_cpu(name, plan)
         return pdhg_average_round_ref(K, q, lb, ub, is_eq, ht, tau, sig, Y,
                                       L, n_inner)
     m, n = K.shape

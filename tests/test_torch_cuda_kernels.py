@@ -69,13 +69,16 @@ def _variant(name, B, dtype, variant, scheme="halpern"):
         return ("stream",) + pdhg_kernel._stream_shape(B, m, n, it, scheme)
     if variant == "grid":
         return ("grid",) + pdhg_kernel._grid_shape(B, m, n, it)
+    if variant == "small":
+        return ("small",) + pdhg_kernel._small_shape(B, m, n, it)
     return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it, scheme)
 
 
 _COUNTERS = ("launches", "cluster_launches", "tile_launches",
-             "stream_launches", "grid_launches", "average_launches",
-             "average_cluster_launches", "average_tile_launches",
-             "average_stream_launches", "average_grid_launches")
+             "stream_launches", "grid_launches", "small_launches",
+             "average_launches", "average_cluster_launches",
+             "average_tile_launches", "average_stream_launches",
+             "average_grid_launches", "average_small_launches")
 
 
 def _counts():
@@ -85,12 +88,14 @@ def _counts():
 def _counter(scheme, plan):
     return {"rows": "launches", "cluster": "cluster_launches",
             "tile": "tile_launches", "stream": "stream_launches",
-            "grid": "grid_launches"}[plan[0]] if scheme == "halpern" \
+            "grid": "grid_launches",
+            "small": "small_launches"}[plan[0]] if scheme == "halpern" \
         else {"rows": "average_launches",
               "cluster": "average_cluster_launches",
               "tile": "average_tile_launches",
               "stream": "average_stream_launches",
-              "grid": "average_grid_launches"}[plan[0]]
+              "grid": "average_grid_launches",
+              "small": "average_small_launches"}[plan[0]]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -476,9 +481,10 @@ def test_pdhg_average_round_matches_plain(cuda, name, B, per_el_q, dtype,
 
 def test_solve_batch_average_scheme_runs_the_kernel(cuda):
     """solve_batch(scheme="average") on the card launches the average
-    kernel and never the Halpern one, and its float64 objectives agree
-    with the CPU run's plain version to 1e-6 relative (both solve to tol
-    1e-9; only the reduction order differs)."""
+    kernel (transship's K takes its small variant) and never a Halpern
+    one, and its float64 objectives agree with the CPU run's plain
+    version to 1e-6 relative (both solve to tol 1e-9; only the reduction
+    order differs)."""
     from sqlp_tpu_torch.config import PDHGConfig
     from sqlp_tpu_torch.ops.pdhg import solve_batch
     inst = load_instance("transship", dtype=torch.float64, device="cpu")
@@ -491,13 +497,124 @@ def test_solve_batch_average_scheme_runs_the_kernel(cuda):
     for dev in (torch.device("cpu"), cuda):
         lp = prepare_lp(*(t.to(dev) for t in (a.W, a.senses2, a.q, a.lb2,
                                              a.ub2)))
-        before = (pdhg_kernel.launches, pdhg_kernel.average_launches)
+        before = (pdhg_kernel.launches + pdhg_kernel.small_launches,
+                  pdhg_kernel.average_launches
+                  + pdhg_kernel.average_small_launches)
         obj, _, _, _ = solve_batch(lp, H.to(dev), cfg)
-        after = (pdhg_kernel.launches, pdhg_kernel.average_launches)
+        after = (pdhg_kernel.launches + pdhg_kernel.small_launches,
+                 pdhg_kernel.average_launches
+                 + pdhg_kernel.average_small_launches)
         assert after[0] == before[0]
         assert (after[1] > before[1]) == (dev.type == "cuda")
         objs.append(obj.cpu())
     torch.testing.assert_close(objs[1], objs[0], rtol=1e-6, atol=1e-6)
+
+
+_SMALL_INSTANCES = ("lands", "transship", "baa99-20")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("per_el_q", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3, 16, 1000, 4096])
+@pytest.mark.parametrize("name", _SMALL_INSTANCES)
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_small_kernels_are_the_row_block_round_bit_for_bit(
+        cuda, scheme, name, B, per_el_q, dtype, tol):
+    """The small kernels of both schemes against the row-block kernels
+    over one 80-step round, bit for bit in both dtypes (the same sums in
+    the same order, the epilogues' roundings pinned), at the plan's group
+    shape and at every group width and rows a group that fit (a ragged
+    last group at B = 3 and 1000); within tolerance of the plain version;
+    two launches bitwise equal; each launch counted under the small
+    variant."""
+    args = _round_args(name, B, dtype, cuda, per_el_q)
+    if scheme == "average":
+        args = args[:10]
+    m, n = args[0].shape
+    it = args[0].element_size()
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    rows = kernel(*args, 80, plan=_variant(name, B, dtype, "rows", scheme))
+    ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
+    own = _variant(name, B, dtype, "small", scheme)
+    plans = [own] + [("small", W, R) for W in (1, 2, 4, 8)
+                     for R in pdhg_kernel._SMALL_ROWS
+                     if ("small", W, R) != own and R <= B
+                     and pdhg_kernel._small_fits(W, R, 1, m, n, it)]
+    for plan in plans:
+        before = _counts()
+        out = kernel(*args, 80, plan=plan)
+        again = kernel(*args, 80, plan=plan)
+        torch.cuda.synchronize()
+        want = dict(before)
+        want[_counter(scheme, plan)] += 2
+        assert _counts() == want
+        assert all(torch.equal(a, o) for a, o in zip(again, out)), plan
+        assert all(torch.equal(a, o) for a, o in zip(rows, out)), plan
+        for o, r in zip(out, ref):
+            scale = 1.0 + float(r.abs().max())
+            assert float((o - r).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_small_kernel_keeps_nan(cuda, scheme, dtype):
+    """A row that has diverged to NaN stays NaN through the small kernel,
+    as through the row-block kernel, and does not leak into the other rows
+    of its group."""
+    args = list(_round_args("baa99-20", 16, dtype, cuda, False))
+    args[8] = args[8].clone()
+    args[8][3, 5] = float("nan")
+    if scheme == "average":
+        args = args[:10]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 8)
+    rows = kernel(*args, 8, plan=("rows", 1))
+    for plan in (("small", 4, 4), ("small", 1, 2)):
+        out = kernel(*args, 8, plan=plan)
+        torch.cuda.synchronize()
+        for o, r, b in zip(out, ref, rows):
+            assert torch.equal(torch.isnan(o), torch.isnan(r))
+            assert torch.equal(torch.isnan(o), torch.isnan(b))
+            assert bool(torch.isnan(o[3]).any())
+            keep = [i for i in range(16) if i != 3]
+            assert bool(torch.isfinite(o[keep]).all())
+
+
+def test_forced_small_plans_that_do_not_fit_raise(cuda):
+    """A forced small plan whose group width or rows the kernel does not
+    have, or whose one group misses a block's shared memory (ssn's K),
+    raises at the wrapper before anything launches; nothing falls back."""
+    args = _round_args("lands", 16, torch.float32, cuda, False)
+    before = _counts()
+    for plan in (("small", 3, 1), ("small", 1, 8), ("small", 32, 1),
+                 ("small", 1.0, 1)):
+        with pytest.raises(ValueError, match="no small kernel"):
+            pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
+        with pytest.raises(ValueError, match="no small kernel"):
+            pdhg_kernel.pdhg_average_round(*args[:10], 80, plan=plan)
+    with pytest.raises(ValueError, match="unknown plan"):
+        pdhg_kernel.pdhg_halpern_round(*args, 80, plan=("small", 1))
+    big = _round_args("ssn", 4, torch.float32, cuda, False)
+    with pytest.raises(ValueError, match="no small kernel"):
+        pdhg_kernel.pdhg_halpern_round(*big, 80, plan=("small", 8, 1))
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("q_rows", [0, 1])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", _SMALL_INSTANCES)
+def test_small_smem_mirrors_the_kernel(cuda, name, itemsize, q_rows):
+    """pdhg_kernel._small_smem is the kernel's own footprint
+    (pdhg_small.cuh:smem_bytes) at every (R, G) a block may hold."""
+    from sqlp_tpu_torch.ops.cuda import build
+    inst = load_instance(name, dtype=torch.float64, device="cpu")
+    m, n = inst.arrays.W.shape
+    lib = build.load()
+    for R in pdhg_kernel._SMALL_ROWS:
+        for G in (1, 2, 4, 8, 16):
+            assert lib.pdhg_small_smem(R, G, m, n, itemsize, q_rows) == \
+                pdhg_kernel._small_smem(R, G, m, n, itemsize, q_rows)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

@@ -7,9 +7,10 @@ The expected variants are the ones the H100 measurements chose
 cluster kernel for the small panels of an instance whose K does not fit
 L1, the tile kernel for its large panels, the stream kernel for a K whose
 slices fit no cluster (storm) in float64, the grid kernel for such a K's
-float32 panels past the cluster kernel's, the row-block kernel for a
-small K, and the master on a cluster of 8 (one block for a master as
-small as lands').
+float32 panels past the cluster kernel's, the small kernel for a K under
+128 KB (K resident in one block's shared memory), the row-block kernel
+for what no other variant takes, and the master on a cluster of 8 (one
+block for a master as small as lands').
 """
 
 import pytest
@@ -53,13 +54,30 @@ def _shape(name):
 
 
 INSTANCES = ["lands", "transship", "baa99-20", "ssn", "storm"]
+# every shipped instance whose K is under 128 KB
+SMALL_INSTANCES = ["lands", "transship", "baa99-20", "farmer", "newsvendor",
+                   "newsprice", "saleslim"]
 PANELS = (2, 16, 256, 4096)
 ROWS1, ROWS2, ROWS4 = ("rows", 1), ("rows", 2), ("rows", 4)
-SMALL_K = (ROWS1, ROWS1, ROWS1, ROWS4)
 F32 = "fma"     # the tile kernels' float32 arithmetic
+# a K under 128 KB: the small kernel. While a panel gives each SM at most
+# 2 rows, a group carries 1 row on n / 16 warps rounded up to a power of 2
+# and at most 8 (lands 1, transship 8, baa99-20 8); at the MC panel (31
+# rows an SM) 4 rows on a quarter of those warps
+_SMALL_W = {"lands": 1, "transship": 8, "baa99-20": 8, "farmer": 1,
+            "newsvendor": 1, "newsprice": 1, "saleslim": 1}
+
+
+def _small_k(name):
+    W = _SMALL_W[name]
+    return (("small", W, 1), ("small", W, 1), ("small", W, 1),
+            ("small", max(1, W // 4), 4))
+
+
 # (instance, itemsize) -> the Halpern round's plan at B = 2, 16, 256, 4096
 _PDHG = {
-    **{(name, it): SMALL_K for name in INSTANCES[:3] for it in (4, 8)},
+    **{(name, it): _small_k(name) for name in INSTANCES[:3]
+       for it in (4, 8)},
     ("ssn", 4): (("cluster", 16, 1), ("cluster", 4, 1), ("tile", 4, F32),
                  ("tile", 4, F32)),
     ("ssn", 8): (("cluster", 16, 1), ("cluster", 8, 2), ("tile", 8, "mma"),
@@ -93,6 +111,14 @@ def _check_admitted(plan, B, m, n, itemsize, scheme):
         assert itemsize in pdhg_kernel._STREAM_ITEMSIZES
         assert 0 < pdhg_kernel._stream_smem(C, m, n, itemsize) <= SMEM_MAX
         assert pdhg_kernel._stream_fits(C, TM, m, n, itemsize)
+    elif plan[0] == "small":
+        _, W, R = plan
+        assert itemsize in pdhg_kernel._SMALL_ITEMSIZES
+        assert m * n * itemsize < pdhg_kernel._CLUSTER_MIN_K_BYTES
+        assert pdhg_kernel._small_fits(W, R, 1, m, n, itemsize)
+        G = pdhg_kernel._small_groups(B, W, R, m, n, itemsize)
+        assert G * W <= pdhg_kernel._SMALL_MAX_WARPS
+        assert pdhg_kernel._small_smem(R, G, m, n, itemsize) <= SMEM_MAX
     elif plan[0] == "grid":
         _, BM, P = plan
         assert itemsize == 4 and itemsize in pdhg_kernel._GRID_ITEMSIZES
@@ -108,8 +134,8 @@ def _check_admitted(plan, B, m, n, itemsize, scheme):
 @pytest.mark.parametrize("name", INSTANCES)
 def test_pdhg_plan(h100, name, itemsize, B):
     """The Halpern round's variant at the SD step's panel (B = 2), a short
-    ladder tail (16), a ladder rung (256) and the MC panel (4096). Small K
-    stays on the row-block kernel; ssn's 2-row panel takes a cluster of 16
+    ladder tail (16), a ladder rung (256) and the MC panel (4096). A K
+    under 128 KB takes the small kernel; ssn's 2-row panel takes a cluster of 16
     per row (measured faster than 8), B = 16 one wave of 4-CTA clusters in
     f32 and of 8-CTA clusters with 2 rows in f64, and from B = 256 the tile
     kernel on 30 clusters of 4 (f32) or 15 of 8 (f64: K's f64 slices need
@@ -163,7 +189,7 @@ def test_pdhg_plan_on_the_mc_ladder(h100):
 
 @pytest.mark.parametrize("name", ["lands", "transship"])
 def test_pdhg_plan_small_k_never_asks_the_card(name, monkeypatch):
-    """A K under _CLUSTER_MIN_K_BYTES takes the row-block kernel without
+    """A K under _CLUSTER_MIN_K_BYTES takes the small kernel without
     asking the card for its cluster occupancy (only for its SM count), on
     any host."""
     def refuse(*args):
@@ -176,7 +202,7 @@ def test_pdhg_plan_small_k_never_asks_the_card(name, monkeypatch):
     try:
         for scheme in ("halpern", "average"):
             for B in (2, 16, 4096):
-                assert pdhg_kernel._plan(B, m, n, 8, scheme)[0] == "rows"
+                assert pdhg_kernel._plan(B, m, n, 8, scheme)[0] == "small"
     finally:
         pdhg_kernel._plan.cache_clear()
 
@@ -633,3 +659,159 @@ def test_grid_k_is_padded_and_residue_major(m, n):
     K.mul_(2.0)
     Kp2, _ = pdhg_kernel._grid_k(K)
     assert Kp2 is not Kp and torch.equal(Kp2[:m, :n], K)
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", SMALL_INSTANCES)
+def test_small_plan_for_every_small_instance(h100, name, itemsize, scheme):
+    """Every shipped instance whose K is under 128 KB takes the small
+    kernel at the SD panel, the replications' panel, a ladder rung and the
+    MC panel, in both dtypes and both schemes, at an admitted shape."""
+    m, n = _shape(name)
+    assert m * n * itemsize < pdhg_kernel._CLUSTER_MIN_K_BYTES
+    for B, want in zip(PANELS, _small_k(name)):
+        plan = pdhg_kernel._plan(B, m, n, itemsize, scheme)
+        assert plan == want
+        _check_admitted(plan, B, m, n, itemsize, scheme)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", SMALL_INSTANCES)
+def test_small_footprint_fits_a_block(h100, name, itemsize):
+    """The small kernel's block, at the group shape and the groups the plan
+    gives every panel from 1 to 16,384 rows (per-row q assumed), holds K,
+    the bounds and its rows' vectors within the 227 KB a block may use:
+    baa99-20's K in float64 (80 KB) leaves room for 16 rows of float64
+    vectors; a block has at most 16 warps."""
+    m, n = _shape(name)
+    for B in (1, 2, 3, 16, 100, 256, 1000, 1024, 4096, 16384):
+        _, W, R = pdhg_kernel._plan(B, m, n, itemsize)
+        G = pdhg_kernel._small_groups(B, W, R, m, n, itemsize)
+        assert 1 <= G and G * W <= 16
+        assert pdhg_kernel._small_smem(R, G, m, n, itemsize) <= SMEM_MAX
+        assert pdhg_kernel._small_fits(W, R, G, m, n, itemsize)
+    if (name, itemsize) == ("baa99-20", 8):
+        assert m * n * itemsize == 80_000
+        assert pdhg_kernel._small_smem(4, 4, m, n, itemsize) <= SMEM_MAX
+
+
+def _small_smem_by_region(R, G, m, n, itemsize, q_rows):
+    """csrc/pdhg_small.cuh's layout, region by region: K with its rows
+    padded to a multiple of 4 (in the tiny layout, n <= 32 and m <= 8: 8
+    rows at a stride of 32 elements and 16 bytes), lb, ub and a shared q, then per row Y, its
+    anchor or sum, Yb and a per-row q, and L, its anchor or sum and ht,
+    each padded to 4 elements (32 and 8 in the tiny layout); is_eq bytes
+    last, padded to 4."""
+    def up4(x):
+        return -(-x // 4) * 4
+    tiny = n <= 32 and m <= 8
+    mp = 8 if tiny else up4(m)
+    np_ = 32 if tiny else up4(n)
+    K = mp * (32 + 16 // itemsize if tiny else n)
+    bounds = 2 * np_
+    q_shared = 0 if q_rows else np_
+    per_row = 3 * np_ + (np_ if q_rows else 0) + 3 * mp
+    return (K + bounds + q_shared + G * R * per_row) * itemsize + up4(m)
+
+
+@pytest.mark.parametrize("q_rows", [0, 1])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", ["lands", "transship", "baa99-20",
+                                  "farmer"])
+def test_small_smem_mirrors_the_kernel_layout(name, itemsize, q_rows):
+    m, n = _shape(name)
+    for R in (1, 2, 4):
+        for G in (1, 2, 4, 8, 16):
+            assert pdhg_kernel._small_smem(R, G, m, n, itemsize, q_rows) \
+                == _small_smem_by_region(R, G, m, n, itemsize, q_rows)
+
+
+@pytest.mark.parametrize("name,B,W,R,G32,G64", [
+    ("lands", 2, 1, 1, 1, 1), ("lands", 16, 1, 1, 1, 1),
+    ("lands", 256, 1, 1, 2, 2), ("lands", 1000, 1, 2, 4, 4),
+    ("lands", 4096, 1, 4, 8, 8), ("transship", 1024, 8, 4, 2, 2),
+    ("transship", 4096, 2, 4, 8, 8), ("baa99-20", 2, 8, 1, 1, 1),
+    ("baa99-20", 1000, 8, 4, 2, 2), ("baa99-20", 4096, 2, 4, 8, 4),
+    ("baa99-20", 16384, 2, 4, 8, 4)])
+def test_small_groups_fill_the_card(h100, name, B, W, R, G32, G64):
+    """A block carries as many groups as its 16 warps and its shared memory
+    allow while the panel still gives each of the 132 SMs a block: one
+    group for the SD panels, more at the ladder's rungs, so K is copied
+    once for many rows (baa99-20's float64 K leaves room for 4 groups of
+    4 rows)."""
+    m, n = _shape(name)
+    for itemsize, G in ((4, G32), (8, G64)):
+        assert pdhg_kernel._plan(B, m, n, itemsize) == ("small", W, R)
+        assert pdhg_kernel._small_groups(B, W, R, m, n, itemsize) == G
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+@pytest.mark.parametrize("plan", [("small", 3, 1), ("small", 1, 3),
+                                  ("small", 32, 1), ("small", 1, 8),
+                                  ("small", 0, 1), ("small", 1.0, 1),
+                                  ("small", 2, 2.0)])
+def test_launch_refuses_a_small_plan_the_kernel_does_not_take(scheme, plan):
+    """A forced small plan whose group width is not 1, 2, 4, 8 or 16 warps
+    or whose rows a group are not 1, 2 or 4 raises at the wrapper, before
+    anything is built or launched, on any host."""
+    K = torch.zeros((40, 250))
+    with pytest.raises(ValueError, match="no small kernel"):
+        pdhg_kernel._launch(scheme, plan, K, (), 16, 40, 250, 80)
+
+
+@pytest.mark.parametrize("plan", [("small", 1), ("small", 1, 1, 1),
+                                  ("small",)])
+def test_launch_refuses_a_small_plan_of_another_length(plan):
+    K = torch.zeros((7, 12))
+    with pytest.raises(ValueError, match="unknown plan"):
+        pdhg_kernel._launch("halpern", plan, K, (), 8, 7, 12, 80)
+
+
+@pytest.mark.parametrize("name,itemsize", [("ssn", 4), ("ssn", 8),
+                                           ("storm", 4)])
+def test_launch_refuses_a_small_plan_whose_group_misses_a_block(name,
+                                                               itemsize):
+    """ssn's and storm's K do not fit one block's shared memory: a forced
+    small plan raises, and the plan never gives them one."""
+    m, n = _shape(name)
+    K = torch.zeros((m, n), dtype=torch.float32 if itemsize == 4
+                    else torch.float64)
+    assert pdhg_kernel._small_shape(16, m, n, itemsize) is None
+    with pytest.raises(ValueError, match="no small kernel"):
+        pdhg_kernel._launch("halpern", ("small", 1, 1), K, (), 16, m, n, 80)
+
+
+def _cpu_round_args(B):
+    g = torch.Generator().manual_seed(0)
+    m, n = 7, 12
+    K = torch.randn((m, n), generator=g, dtype=torch.float64)
+    return (K, torch.rand(n, generator=g, dtype=torch.float64),
+            torch.full((n,), -1.0, dtype=torch.float64),
+            torch.full((n,), 1.0, dtype=torch.float64),
+            torch.zeros(m, dtype=torch.bool),
+            torch.randn((B, m), generator=g, dtype=torch.float64),
+            torch.full((B,), 0.1, dtype=torch.float64),
+            torch.full((B,), 0.1, dtype=torch.float64),
+            torch.zeros((B, n), dtype=torch.float64),
+            torch.zeros((B, m), dtype=torch.float64),
+            torch.zeros(B, dtype=torch.float64),
+            torch.zeros((B, n), dtype=torch.float64),
+            torch.zeros((B, m), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("plan", [("small", 1, 1), ("small", 4, 4),
+                                  ("rows", 1)])
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_wrappers_raise_on_cpu_tensors_with_a_forced_plan(scheme, plan):
+    """CPU tensors run the plain version, which takes no plan: a forced
+    small (or any other) plan raises instead of falling back; without one
+    the wrapper is the plain version."""
+    args = _cpu_round_args(4)
+    if scheme == "average":
+        args = args[:10]
+    kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
+    with pytest.raises(ValueError, match="CPU tensors"):
+        kernel(*args, 8, plan=plan)
+    ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 8)
+    assert all(torch.equal(a, b) for a, b in zip(kernel(*args, 8), ref))
