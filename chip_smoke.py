@@ -1428,6 +1428,7 @@ def phase_profile_ef():
             f"{e.count} launches")
 
 
+# each PDHG kernel's counter in pdhg_kernel.launches_by_shape
 _PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
                   "pdhg_halpern_cluster": "cluster_launches",
                   "pdhg_halpern_tile": "tile_launches",
@@ -1445,8 +1446,6 @@ _PDHG_COUNTERS = {"pdhg_halpern_round": "launches",
 def _reset_counts():
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
-    for attr in _PDHG_COUNTERS.values():
-        setattr(pk, attr, 0)
     pk.launches_by_shape.clear()
     ak.launches = 0
     ak.batched_launches = 0
@@ -1455,7 +1454,8 @@ def _reset_counts():
 def _counts():
     from sqlp_tpu_torch.ops.cuda import admm_kernel as ak
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
-    out = {k: getattr(pk, attr) for k, attr in _PDHG_COUNTERS.items()}
+    by_counter = pk.launch_counts()
+    out = {k: by_counter[attr] for k, attr in _PDHG_COUNTERS.items()}
     out["admm_round"] = ak.launches
     out["admm_round_batched"] = ak.batched_launches
     return out
@@ -1522,7 +1522,7 @@ def _f32_gate(tag, evaluate):
     import torch
     from sqlp_tpu_torch.ops.cuda import pdhg_kernel as pk
 
-    saved = dict(pk.launches_by_shape), _counts()
+    saved = dict(pk.launches_by_shape)
     real = pk._plan
     plans = {"rows": _f32_tiles_as_rows(pk, real), "tile": real}
     rounds = {k: 0 for k in plans}
@@ -1550,9 +1550,7 @@ def _f32_gate(tag, evaluate):
         pk._plan = real
     # the path's own counts stand as they were read before the gate
     _reset_counts()
-    pk.launches_by_shape.update(saved[0])
-    for k, attr in _PDHG_COUNTERS.items():
-        setattr(pk, attr, saved[1][k])
+    pk.launches_by_shape.update(saved)
 
     apart = abs(rounds["tile"] - rounds["rows"]) / max(rounds["rows"], 1)
     limit = 0.05

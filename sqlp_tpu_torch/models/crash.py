@@ -37,6 +37,7 @@ import torch
 from sqlp_tpu_torch.config import PDHGConfig
 from sqlp_tpu_torch.models.scenario import sample_deltas
 from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_L
+from sqlp_tpu_torch.utils.profiling import span
 
 _BIG = 1e30
 
@@ -109,7 +110,21 @@ def solve_extensive_form(arrays, model, deltas: torch.Tensor,
     Returns (x, objective, stats[, duals, Y, u0]), each with the leading R
     axis when ``deltas`` has one; ``stats`` holds tensors ``ef_iters``,
     ``ef_err``, ``ef_err0``, ``ef_omega`` and ``ef_converged``.
+
+    Spans (``utils/profiling.py``, under a profiler only): ``ef.solve``
+    around the call (R, S), and ``ef.round`` for each restart round (R,
+    live replications), from the return of the host read that admitted
+    it to the return of the next, with the stamp ``enqueued`` (the
+    round's work enqueued).
     """
+    with span("ef.solve", R=deltas.shape[0] if deltas.dim() == 3 else 1,
+              S=deltas.shape[-2]):
+        return _solve_extensive_form(arrays, model, deltas, probs, config,
+                                     return_duals, x0, Y0, U0, u00, omega0)
+
+
+def _solve_extensive_form(arrays, model, deltas, probs, config,
+                          return_duals, x0, Y0, U0, u00, omega0):
     batched = deltas.dim() == 3
     if not batched:
         deltas = deltas[None]
@@ -385,22 +400,29 @@ def solve_extensive_form(arrays, model, deltas: torch.Tensor,
 
     n_rounds = max(1, config.max_iters // config.restart_every)
     rounds = np.zeros(R, np.int64)
-    while True:
-        live = (rounds < n_rounds) & (C["err_best"].cpu().numpy()
+
+    def live_now():
+        # one host read a round: the loop condition
+        return (rounds < n_rounds) & (C["err_best"].cpu().numpy()
                                       > config.tol)
-        if not live.any():
-            break
-        if live.all():
-            C = round_step(C, eta, omega_init, P)
-        else:
-            # finished replications keep their carry, as under a vmapped
-            # while_loop: the round runs on the others alone
-            idx = torch.as_tensor(np.flatnonzero(live), device=dev)
-            sub = round_step({k: _rows(v, idx) for k, v in C.items()},
-                             eta[idx], omega_init[idx],
-                             tuple(_rows(p, idx) for p in P))
-            C = {k: v.index_copy(0, idx, sub[k]) for k, v in C.items()}
-        rounds += live
+
+    live = live_now()
+    while live.any():
+        # from the read that admitted the round to the next one's return
+        with span("ef.round", R=R, live=int(live.sum())) as rec:
+            if live.all():
+                C = round_step(C, eta, omega_init, P)
+            else:
+                # finished replications keep their carry, as under a
+                # vmapped while_loop: the round runs on the others alone
+                idx = torch.as_tensor(np.flatnonzero(live), device=dev)
+                sub = round_step({k: _rows(v, idx) for k, v in C.items()},
+                                 eta[idx], omega_init[idx],
+                                 tuple(_rows(p, idx) for p in P))
+                C = {k: v.index_copy(0, idx, sub[k]) for k, v in C.items()}
+            rec.mark("enqueued")
+            rounds += live
+            live = live_now()
 
     xb, Yb, Ub, ub0 = C["xb"], C["Yb"], C["Ub"], C["ub0"]
     obj = (xb @ c + _sum(qS * Yb)) * obj_s

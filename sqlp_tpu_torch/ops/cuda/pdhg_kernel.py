@@ -63,23 +63,32 @@ import torch
 
 from sqlp_tpu_torch.ops.cuda import build
 
-# launches of each CUDA kernel in this process (the plain versions do not
-# count); chip_smoke.py resets them before driving a path
-launches = 0                    # pdhg_halpern_round, row-block variant
-cluster_launches = 0            # pdhg_halpern_round, cluster variant
-tile_launches = 0               # pdhg_halpern_round, tile variant
-average_launches = 0            # pdhg_average_round, row-block variant
-average_cluster_launches = 0    # pdhg_average_round, cluster variant
-average_tile_launches = 0       # pdhg_average_round, tile variant
-stream_launches = 0             # pdhg_halpern_round, stream variant
-average_stream_launches = 0     # pdhg_average_round, stream variant
-grid_launches = 0               # pdhg_halpern_round, grid variant
-average_grid_launches = 0       # pdhg_average_round, grid variant
-small_launches = 0              # pdhg_halpern_round, small variant
-average_small_launches = 0      # pdhg_average_round, small variant
-# the same launches by (counter, B, itemsize): which rung of a path went
-# through which variant
+# the counter of each (scheme, variant) in launches_by_shape
+COUNTERS = {("halpern", "rows"): "launches",
+            ("halpern", "cluster"): "cluster_launches",
+            ("halpern", "tile"): "tile_launches",
+            ("halpern", "stream"): "stream_launches",
+            ("halpern", "grid"): "grid_launches",
+            ("halpern", "small"): "small_launches",
+            ("average", "rows"): "average_launches",
+            ("average", "cluster"): "average_cluster_launches",
+            ("average", "tile"): "average_tile_launches",
+            ("average", "stream"): "average_stream_launches",
+            ("average", "grid"): "average_grid_launches",
+            ("average", "small"): "average_small_launches"}
+# launches of the CUDA kernels in this process (the plain versions do not
+# count) by (counter, B, itemsize): which rung of a path went through
+# which variant; chip_smoke.py clears it before driving a path
 launches_by_shape = collections.Counter()
+
+
+def launch_counts() -> dict:
+    """The launches of each counter of :data:`COUNTERS` (0 included):
+    :data:`launches_by_shape` summed over rows and itemsize."""
+    out = dict.fromkeys(COUNTERS.values(), 0)
+    for (counter, _, _), n in launches_by_shape.items():
+        out[counter] += n
+    return out
 
 _SMEM_BUDGET = 200 * 1024
 _SMEM_MAX = 227 * 1024  # dynamic shared memory one block may use (sm_90)
@@ -824,21 +833,7 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
         code = fn(*head, *(t if isinstance(t, int) else t.data_ptr()
                            for t in operands), B, m, n, int(n_inner), stream)
     build.check(code, f"{name} {plan}")
-    counter = {("halpern", "rows"): "launches",
-               ("halpern", "cluster"): "cluster_launches",
-               ("halpern", "tile"): "tile_launches",
-               ("halpern", "stream"): "stream_launches",
-               ("halpern", "grid"): "grid_launches",
-               ("average", "rows"): "average_launches",
-               ("average", "cluster"): "average_cluster_launches",
-               ("average", "tile"): "average_tile_launches",
-               ("average", "stream"): "average_stream_launches",
-               ("average", "grid"): "average_grid_launches",
-               ("halpern", "small"): "small_launches",
-               ("average", "small"): "average_small_launches",
-               }[scheme, plan[0]]
-    globals()[counter] += 1
-    launches_by_shape[counter, B, it] += 1
+    launches_by_shape[COUNTERS[scheme, plan[0]], B, it] += 1
 
 
 def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,

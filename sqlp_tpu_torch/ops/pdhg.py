@@ -32,6 +32,7 @@ from sqlp_tpu_torch.config import PDHGConfig
 from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_L
 from sqlp_tpu_torch.ops.cuda.pdhg_kernel import (pdhg_average_round,
                                                  pdhg_halpern_round)
+from sqlp_tpu_torch.utils.profiling import span
 from sqlp_tpu_torch.utils.torchsetup import resolve_device
 
 _BIG = 1e30  # stand-in for +inf inside clips (keeps NaNs away)
@@ -180,7 +181,23 @@ def solve_batch(lp: PreparedLP, H: torch.Tensor,
     optional warm starts in original units; Q: optional [B, n] per-element
     objective in original units. Returns (obj [B], Y [B, n], Pi [B, m],
     stats); Pi in the JuMP d(obj)/d(rhs) convention, all unscaled.
+
+    Spans (``utils/profiling.py``, under a profiler only): ``pdhg.solve``
+    around the call (B, itemsize, rounds); ``pdhg.compact`` around each
+    compaction's sort and gather and its scatter back (the rung's rows);
+    ``pdhg.round`` for each restart round (the rung's rows), from the
+    return of the host read that admitted it to the return of the next,
+    so the rounds of a rung tile its loop, with the stamps ``launched``
+    (the round's kernel enqueued) and ``enqueued`` (the whole round).
     """
+    with span("pdhg.solve", B=H.shape[0],
+              itemsize=lp.K.element_size()) as s:
+        out = _solve_batch(lp, H, config, Y0, L0, Q)
+        s.set(rounds=out[3]["pdhg_rounds"])
+    return out
+
+
+def _solve_batch(lp, H, config, Y0, L0, Q):
     B, m = H.shape
     n = lp.n
     dtype = lp.K.dtype
@@ -202,8 +219,9 @@ def solve_batch(lp: PreparedLP, H: torch.Tensor,
     if config.scheme not in ("halpern", "average"):
         raise ValueError(f"unknown PDHG scheme {config.scheme!r}")
 
-    def round_step(el):
-        """One restart round on a dict of per-element state."""
+    def round_step(el, rec):
+        """One restart round on a dict of per-element state; ``rec`` is
+        the round's span."""
         Qs = el.get("Q")
         tau = eta / el["omega"]
         sig = eta * el["omega"]
@@ -218,6 +236,7 @@ def solve_batch(lp: PreparedLP, H: torch.Tensor,
                 K, lp.q if Qs is None else Qs, lb, ub, is_eq, el["ht"], tau,
                 sig, el["Y"], el["L"], config.restart_every)
             cands = [(Ycarry, Lcarry), (Ya, La)]
+        rec.mark("launched")
 
         Yc, Lc = cands[0]
         err, _ = _kkt_residuals(lp, el["ht"], Yc, Lc, Qs)
@@ -318,18 +337,25 @@ def solve_batch(lp: PreparedLP, H: torch.Tensor,
         stop = sizes[phase_i + 1] if phase_i + 1 < len(sizes) else 0
         compact = size < el["done"].shape[0]
         if compact:
-            order = torch.argsort(el["done"].to(torch.int32),
-                                  stable=True)[:size]
-            sub = {k: v[order].contiguous() for k, v in el.items()}
+            with span("pdhg.compact", rows=size):
+                order = torch.argsort(el["done"].to(torch.int32),
+                                      stable=True)[:size]
+                sub = {k: v[order].contiguous() for k, v in el.items()}
         else:
             sub = el
         # one host read per restart round: the loop condition
-        while it < n_rounds and int((~sub["done"]).sum()) > stop:
-            sub = round_step(sub)
-            it += 1
+        go = it < n_rounds and int((~sub["done"]).sum()) > stop
+        while go:
+            with span("pdhg.round", rows=size) as rec:
+                sub = round_step(sub, rec)
+                rec.mark("enqueued")
+                it += 1
+                go = it < n_rounds and int((~sub["done"]).sum()) > stop
         phase_rounds.append(it)
         if compact:
-            el = {k: el[k].index_copy(0, sub["orig"], sub[k]) for k in el}
+            with span("pdhg.compact", rows=size):
+                el = {k: el[k].index_copy(0, sub["orig"], sub[k])
+                      for k in el}
         else:
             el = sub
     rounds = it

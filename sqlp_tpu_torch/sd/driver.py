@@ -65,6 +65,7 @@ from sqlp_tpu_torch.sd.lower_bound import (certified_lower_bound,
 from sqlp_tpu_torch.sd.state import (EpigraphSpec, SDState,
                                      default_epigraph_spec, init_state,
                                      stack_states, state_at, state_to_numpy)
+from sqlp_tpu_torch.utils.profiling import span
 from sqlp_tpu_torch.utils.torchsetup import configure_torch
 
 
@@ -452,93 +453,111 @@ class SDSolver:
         dev = self.device
         dt = self.config.jdtype
         pdhg = self.config.pdhg
-        Qn = None if Q is None else np.asarray(_host(Q), np.float64)
-        pool = self._warmstart_pool()
-        if obj0 is not None:
-            if self.mesh is not None:
-                raise ValueError("solve reuse is a single-device path: it "
-                                 "does not run on a mesh")
-            vals = np.array(_host(obj0), np.float64)
-            valid = _host(valid0)
-        elif self.mesh is not None:
-            B = H.shape[0]
-            obj, _, _, stats = solve_batch(
-                self.prep_sub, place_batch(H, self.mesh), pdhg,
-                Q=None if Q is None else place_batch(Q, self.mesh))
-            vals = to_host(obj, self.mesh).astype(np.float64)[:B]
-            valid = to_host(stats["pdhg_valid"], self.mesh)[:B]
-        else:
-            L0 = None
-            if pool is not None and not self.inst.scenario_model.has_cost:
-                pool_t = torch.as_tensor(pool, dtype=dt, device=dev)
-                L0 = pool_t[torch.argmax(pool_t @ H.to(dt).T, dim=0)]
-            obj, _, _, stats = solve_batch(self.prep_sub, H, pdhg, L0=L0,
-                                           Q=Q)
-            vals = np.array(_host(obj), np.float64)
-            valid = _host(stats["pdhg_valid"])
-        bad = np.flatnonzero(~valid)
-        Hn = np.asarray(_host(H), np.float64)
-        if bad.size:
-            bucket = max(256, 1 << (int(bad.size) - 1).bit_length())
-            idx = np.pad(bad, (0, bucket - bad.size), mode="edge")
-            Hb = torch.as_tensor(Hn[idx], dtype=dt, device=dev)
-            Qb = None if Qn is None else torch.as_tensor(
-                Qn[idx], dtype=dt, device=dev)
-            L0 = None
-            if pool is not None:
-                L0 = torch.as_tensor(pool[np.argmax(pool @ Hn[idx].T,
-                                                    axis=0)],
-                                     dtype=dt, device=dev)
-            obj_r, Y_r, Pi_r, st_r = solve_batch(self.prep_sub, Hb, pdhg,
-                                                 L0=L0, Q=Qb)
-            fixed = _host(st_r["pdhg_valid"])[:bad.size]
-            vals[bad[fixed]] = np.asarray(_host(obj_r),
-                                          np.float64)[:bad.size][fixed]
-            rem_pos = np.flatnonzero(~fixed)
-            bad = bad[~fixed]
+        B = H.shape[0]
+        with span("driver.panel", rows=B) as panel:
+            Qn = None if Q is None else np.asarray(_host(Q), np.float64)
+            with span("ladder.first", rows=B, bucket=B) as step:
+                pool = self._warmstart_pool()
+                if obj0 is not None:
+                    if self.mesh is not None:
+                        raise ValueError("solve reuse is a single-device "
+                                         "path: it does not run on a mesh")
+                    vals = np.array(_host(obj0), np.float64)
+                    valid = _host(valid0)
+                elif self.mesh is not None:
+                    obj, _, _, stats = solve_batch(
+                        self.prep_sub, place_batch(H, self.mesh), pdhg,
+                        Q=None if Q is None else place_batch(Q, self.mesh))
+                    vals = to_host(obj, self.mesh).astype(np.float64)[:B]
+                    valid = to_host(stats["pdhg_valid"], self.mesh)[:B]
+                else:
+                    L0 = None
+                    if pool is not None \
+                            and not self.inst.scenario_model.has_cost:
+                        pool_t = torch.as_tensor(pool, dtype=dt, device=dev)
+                        L0 = pool_t[torch.argmax(pool_t @ H.to(dt).T, dim=0)]
+                    obj, _, _, stats = solve_batch(self.prep_sub, H, pdhg,
+                                                   L0=L0, Q=Q)
+                    vals = np.array(_host(obj), np.float64)
+                    valid = _host(stats["pdhg_valid"])
+                bad = np.flatnonzero(~valid)
+                step.set(certified=B - bad.size)
+            panel.set(first=B - bad.size)
+            Hn = np.asarray(_host(H), np.float64)
             if bad.size:
-                # f64 escalation, warm-started from the f32 iterate
-                bucket2 = max(256, 1 << (int(bad.size) - 1).bit_length())
-                idx2 = np.pad(bad, (0, bucket2 - bad.size), mode="edge")
-                pos2 = np.pad(rem_pos, (0, bucket2 - rem_pos.size),
-                              mode="edge")
-                f8 = torch.float64
-                Y64 = Y_r.to(f8)[torch.as_tensor(pos2, device=dev)]
-                P64 = Pi_r.to(f8)[torch.as_tensor(pos2, device=dev)]
-                cfg64 = dataclasses.replace(
-                    pdhg, max_iters=min(pdhg.max_iters, 20_000))
-                obj2, _, _, st2 = solve_batch(
-                    self._prep_sub64,
-                    torch.as_tensor(Hn[idx2], dtype=f8, device=dev), cfg64,
-                    Y0=Y64, L0=P64,
-                    Q=None if Qn is None else torch.as_tensor(
-                        Qn[idx2], dtype=f8, device=dev))
-                fixed2 = _host(st2["pdhg_valid"])[:bad.size]
-                vals[bad[fixed2]] = np.asarray(
-                    _host(obj2), np.float64)[:bad.size][fixed2]
-                bad = bad[~fixed2]
-        if bad.size:
-            a = self.arrays
-            q = np.asarray(_host(a.q), np.float64)
-            W = np.asarray(_host(a.W), np.float64)
-            s2 = _host(a.senses2)
-            lb = np.asarray(_host(a.lb2), np.float64)
-            ub = np.asarray(_host(a.ub2), np.float64)
-            for b in bad:
-                try:
-                    vals[b], _, _ = solve_lp_host(
-                        q if Qn is None else Qn[b], W, Hn[b], s2, lb, ub)
-                except RuntimeError as e:
-                    raise RuntimeError(
-                        f"recourse LP infeasible/unsolvable at the "
-                        f"evaluated x for scenario row {b} (is x "
-                        f"first-stage feasible?): {e}") from e
-            self.host_fallback_count += int(bad.size)
-            if bad.size > 0.01 * len(vals):
-                warnings.warn(
-                    f"{bad.size}/{len(vals)} recourse LPs missed "
-                    f"valid_tol={pdhg.valid_tol:g} after the device "
-                    f"escalation ladder; re-solved exactly on the host")
+                bucket = max(256, 1 << (int(bad.size) - 1).bit_length())
+                with span("ladder.resolve", rows=bad.size,
+                          bucket=bucket) as step:
+                    idx = np.pad(bad, (0, bucket - bad.size), mode="edge")
+                    Hb = torch.as_tensor(Hn[idx], dtype=dt, device=dev)
+                    Qb = None if Qn is None else torch.as_tensor(
+                        Qn[idx], dtype=dt, device=dev)
+                    L0 = None
+                    if pool is not None:
+                        L0 = torch.as_tensor(pool[np.argmax(
+                            pool @ Hn[idx].T, axis=0)], dtype=dt, device=dev)
+                    obj_r, Y_r, Pi_r, st_r = solve_batch(
+                        self.prep_sub, Hb, pdhg, L0=L0, Q=Qb)
+                    fixed = _host(st_r["pdhg_valid"])[:bad.size]
+                    vals[bad[fixed]] = np.asarray(
+                        _host(obj_r), np.float64)[:bad.size][fixed]
+                    rem_pos = np.flatnonzero(~fixed)
+                    bad = bad[~fixed]
+                    step.set(certified=int(fixed.sum()))
+                panel.set(resolve=int(fixed.sum()))
+                if bad.size:
+                    # f64 escalation, warm-started from the f32 iterate
+                    bucket2 = max(256,
+                                  1 << (int(bad.size) - 1).bit_length())
+                    with span("ladder.f64", rows=bad.size,
+                              bucket=bucket2) as step:
+                        idx2 = np.pad(bad, (0, bucket2 - bad.size),
+                                      mode="edge")
+                        pos2 = np.pad(rem_pos, (0, bucket2 - rem_pos.size),
+                                      mode="edge")
+                        f8 = torch.float64
+                        Y64 = Y_r.to(f8)[torch.as_tensor(pos2, device=dev)]
+                        P64 = Pi_r.to(f8)[torch.as_tensor(pos2, device=dev)]
+                        cfg64 = dataclasses.replace(
+                            pdhg, max_iters=min(pdhg.max_iters, 20_000))
+                        obj2, _, _, st2 = solve_batch(
+                            self._prep_sub64,
+                            torch.as_tensor(Hn[idx2], dtype=f8, device=dev),
+                            cfg64, Y0=Y64, L0=P64,
+                            Q=None if Qn is None else torch.as_tensor(
+                                Qn[idx2], dtype=f8, device=dev))
+                        fixed2 = _host(st2["pdhg_valid"])[:bad.size]
+                        vals[bad[fixed2]] = np.asarray(
+                            _host(obj2), np.float64)[:bad.size][fixed2]
+                        bad = bad[~fixed2]
+                        step.set(certified=int(fixed2.sum()))
+                    panel.set(f64=int(fixed2.sum()))
+            if bad.size:
+                with span("ladder.host", rows=bad.size, bucket=0,
+                          certified=bad.size):
+                    a = self.arrays
+                    q = np.asarray(_host(a.q), np.float64)
+                    W = np.asarray(_host(a.W), np.float64)
+                    s2 = _host(a.senses2)
+                    lb = np.asarray(_host(a.lb2), np.float64)
+                    ub = np.asarray(_host(a.ub2), np.float64)
+                    for b in bad:
+                        try:
+                            vals[b], _, _ = solve_lp_host(
+                                q if Qn is None else Qn[b], W, Hn[b], s2,
+                                lb, ub)
+                        except RuntimeError as e:
+                            raise RuntimeError(
+                                f"recourse LP infeasible/unsolvable at the "
+                                f"evaluated x for scenario row {b} (is x "
+                                f"first-stage feasible?): {e}") from e
+                    self.host_fallback_count += int(bad.size)
+                panel.set(host=bad.size)
+                if bad.size > 0.01 * len(vals):
+                    warnings.warn(
+                        f"{bad.size}/{len(vals)} recourse LPs missed "
+                        f"valid_tol={pdhg.valid_tol:g} after the device "
+                        f"escalation ladder; re-solved exactly on the host")
         return vals
 
     def _cost_panel(self, deltas):

@@ -74,28 +74,11 @@ def _variant(name, B, dtype, variant, scheme="halpern"):
     return ("cluster",) + pdhg_kernel._cluster_shape(B, m, n, it, scheme)
 
 
-_COUNTERS = ("launches", "cluster_launches", "tile_launches",
-             "stream_launches", "grid_launches", "small_launches",
-             "average_launches", "average_cluster_launches",
-             "average_tile_launches", "average_stream_launches",
-             "average_grid_launches", "average_small_launches")
-
-
-def _counts():
-    return {c: getattr(pdhg_kernel, c) for c in _COUNTERS}
-
-
-def _counter(scheme, plan):
-    return {"rows": "launches", "cluster": "cluster_launches",
-            "tile": "tile_launches", "stream": "stream_launches",
-            "grid": "grid_launches",
-            "small": "small_launches"}[plan[0]] if scheme == "halpern" \
-        else {"rows": "average_launches",
-              "cluster": "average_cluster_launches",
-              "tile": "average_tile_launches",
-              "stream": "average_stream_launches",
-              "grid": "average_grid_launches",
-              "small": "average_small_launches"}[plan[0]]
+def _by_scheme():
+    """(Halpern, average) launches of the row-block and small variants."""
+    c = pdhg_kernel.launch_counts()
+    return (c["launches"] + c["small_launches"],
+            c["average_launches"] + c["average_small_launches"])
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -119,12 +102,12 @@ def test_pdhg_halpern_round_matches_plain(cuda, name, B, per_el_q, variant,
     if variant == "plan" and name == "ssn":
         assert plan[0] == ("tile" if B == 700 else "cluster")
     args = _round_args(name, B, dtype, cuda, per_el_q)
-    before = _counts()
+    before = pdhg_kernel.launch_counts()
     out = pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
     torch.cuda.synchronize()
     want = dict(before)
-    want[_counter("halpern", plan)] += 1
-    assert _counts() == want
+    want[pdhg_kernel.COUNTERS["halpern", plan[0]]] += 1
+    assert pdhg_kernel.launch_counts() == want
     ref = pdhg_kernel.pdhg_halpern_round_ref(*args, 80)
     for o, r in zip(out, ref):
         scale = 1.0 + float(r.abs().max())
@@ -167,13 +150,13 @@ def test_pdhg_cluster_and_tile_kernels_match_plain(cuda, scheme, name, B,
     if scheme == "average":
         args = args[:10]
     kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
-    before = _counts()
+    before = pdhg_kernel.launch_counts()
     out = kernel(*args, 80, plan=plan)
     again = kernel(*args, 80, plan=plan)
     torch.cuda.synchronize()
     want = dict(before)
-    want[_counter(scheme, plan)] += 2
-    assert _counts() == want
+    want[pdhg_kernel.COUNTERS[scheme, plan[0]]] += 2
+    assert pdhg_kernel.launch_counts() == want
     assert all(torch.equal(a, o) for a, o in zip(again, out))
     ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
     for o, r in zip(out, ref):
@@ -280,13 +263,13 @@ def test_stream_kernels_match_plain(cuda, scheme, B, C, per_el_q, dtype,
     if scheme == "average":
         args = args[:10]
     kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
-    before = _counts()
+    before = pdhg_kernel.launch_counts()
     out = kernel(*args, 80, plan=plan)
     again = kernel(*args, 80, plan=plan)
     torch.cuda.synchronize()
     want = dict(before)
-    want[_counter(scheme, plan)] += 2
-    assert _counts() == want
+    want[pdhg_kernel.COUNTERS[scheme, plan[0]]] += 2
+    assert pdhg_kernel.launch_counts() == want
     assert all(torch.equal(a, o) for a, o in zip(again, out))
     ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
     for o, r in zip(out, ref):
@@ -333,10 +316,10 @@ def test_forced_stream_plans_that_do_not_fit_raise(cuda):
                         (torch.float64, ("stream", 8, 16)),
                         (torch.float32, ("stream", 8, 32))):
         args = _round_args("storm", 16, dtype, cuda, False)
-        before = _counts()
+        before = pdhg_kernel.launch_counts()
         with pytest.raises(ValueError, match="no stream kernel"):
             pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
-        assert _counts() == before
+        assert pdhg_kernel.launch_counts() == before
 
 
 @pytest.mark.parametrize("per_el_q", [False, True])
@@ -361,13 +344,13 @@ def test_grid_kernels_match_plain(cuda, scheme, B, shape, per_el_q):
     if scheme == "average":
         args = args[:10]
     kernel = getattr(pdhg_kernel, f"pdhg_{scheme}_round")
-    before = _counts()
+    before = pdhg_kernel.launch_counts()
     out = kernel(*args, 80, plan=plan)
     again = kernel(*args, 80, plan=plan)
     torch.cuda.synchronize()
     want = dict(before)
-    want[_counter(scheme, plan)] += 2
-    assert _counts() == want
+    want[pdhg_kernel.COUNTERS[scheme, plan[0]]] += 2
+    assert pdhg_kernel.launch_counts() == want
     assert all(torch.equal(a, o) for a, o in zip(again, out))
     ref = getattr(pdhg_kernel, f"pdhg_{scheme}_round_ref")(*args, 80)
     for o, r in zip(out, ref):
@@ -413,12 +396,12 @@ def test_forced_grid_plans_that_do_not_fit_raise(cuda):
                         (torch.float32, ("grid", 32, 1)),
                         (torch.float32, ("grid", 64, 5))):
         args = _round_args("storm", 1024, dtype, cuda, False)
-        before = _counts()
+        before = pdhg_kernel.launch_counts()
         with pytest.raises(ValueError, match="no grid kernel"):
             pdhg_kernel.pdhg_halpern_round(*args, 80, plan=plan)
         with pytest.raises(ValueError, match="no grid kernel"):
             pdhg_kernel.pdhg_average_round(*args[:10], 80, plan=plan)
-        assert _counts() == before
+        assert pdhg_kernel.launch_counts() == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -466,13 +449,13 @@ def test_pdhg_average_round_matches_plain(cuda, name, B, per_el_q, dtype,
     tolerances of the Halpern round; it counts its own launches, not the
     Halpern kernel's."""
     args = _round_args(name, B, dtype, cuda, per_el_q)[:10]
-    before = pdhg_kernel.average_launches
-    halpern = pdhg_kernel.launches
+    before = pdhg_kernel.launch_counts()
     out = pdhg_kernel.pdhg_average_round(
         *args, 80, plan=_variant(name, B, dtype, "rows", "average"))
     torch.cuda.synchronize()
-    assert pdhg_kernel.average_launches == before + 1
-    assert pdhg_kernel.launches == halpern
+    after = pdhg_kernel.launch_counts()
+    assert after["average_launches"] == before["average_launches"] + 1
+    assert after["launches"] == before["launches"]
     ref = pdhg_kernel.pdhg_average_round_ref(*args, 80)
     for o, r in zip(out, ref):
         scale = 1.0 + float(r.abs().max())
@@ -497,13 +480,9 @@ def test_solve_batch_average_scheme_runs_the_kernel(cuda):
     for dev in (torch.device("cpu"), cuda):
         lp = prepare_lp(*(t.to(dev) for t in (a.W, a.senses2, a.q, a.lb2,
                                              a.ub2)))
-        before = (pdhg_kernel.launches + pdhg_kernel.small_launches,
-                  pdhg_kernel.average_launches
-                  + pdhg_kernel.average_small_launches)
+        before = _by_scheme()
         obj, _, _, _ = solve_batch(lp, H.to(dev), cfg)
-        after = (pdhg_kernel.launches + pdhg_kernel.small_launches,
-                 pdhg_kernel.average_launches
-                 + pdhg_kernel.average_small_launches)
+        after = _by_scheme()
         assert after[0] == before[0]
         assert (after[1] > before[1]) == (dev.type == "cuda")
         objs.append(obj.cpu())
@@ -542,13 +521,13 @@ def test_small_kernels_are_the_row_block_round_bit_for_bit(
                      if ("small", W, R) != own and R <= B
                      and pdhg_kernel._small_fits(W, R, 1, m, n, it)]
     for plan in plans:
-        before = _counts()
+        before = pdhg_kernel.launch_counts()
         out = kernel(*args, 80, plan=plan)
         again = kernel(*args, 80, plan=plan)
         torch.cuda.synchronize()
         want = dict(before)
-        want[_counter(scheme, plan)] += 2
-        assert _counts() == want
+        want[pdhg_kernel.COUNTERS[scheme, plan[0]]] += 2
+        assert pdhg_kernel.launch_counts() == want
         assert all(torch.equal(a, o) for a, o in zip(again, out)), plan
         assert all(torch.equal(a, o) for a, o in zip(rows, out)), plan
         for o, r in zip(out, ref):
@@ -586,7 +565,7 @@ def test_forced_small_plans_that_do_not_fit_raise(cuda):
     have, or whose one group misses a block's shared memory (ssn's K),
     raises at the wrapper before anything launches; nothing falls back."""
     args = _round_args("lands", 16, torch.float32, cuda, False)
-    before = _counts()
+    before = pdhg_kernel.launch_counts()
     for plan in (("small", 3, 1), ("small", 1, 8), ("small", 32, 1),
                  ("small", 1.0, 1)):
         with pytest.raises(ValueError, match="no small kernel"):
@@ -598,7 +577,7 @@ def test_forced_small_plans_that_do_not_fit_raise(cuda):
     big = _round_args("ssn", 4, torch.float32, cuda, False)
     with pytest.raises(ValueError, match="no small kernel"):
         pdhg_kernel.pdhg_halpern_round(*big, 80, plan=("small", 8, 1))
-    assert _counts() == before
+    assert pdhg_kernel.launch_counts() == before
 
 
 @pytest.mark.parametrize("q_rows", [0, 1])

@@ -28,8 +28,10 @@ from sqlp_tpu_torch.sd import SDSolver, solve_instance
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# never ported: JAX NamedShardings (the port's state_pspecs is the layout)
-NOT_PORTED = {"state_shardings"}
+# never ported: JAX NamedShardings (the port's state_pspecs is the layout);
+# PhaseTimers, whose synchronizing timers the port's spans
+# (utils/profiling.py) replace
+NOT_PORTED = {"state_shardings", "PhaseTimers"}
 
 
 def _jax_exports():

@@ -29,7 +29,7 @@ from sqlp_tpu_torch.sd.state import SDState
 from sqlp_tpu_torch.utils.checkpoint import (GENERATOR_FIELD, load_meta,
                                              load_state, save_state)
 from sqlp_tpu_torch.utils.metrics import MetricsLogger
-from sqlp_tpu_torch.utils.profiling import PhaseTimers, trace
+from sqlp_tpu_torch.utils.profiling import span, trace
 
 from test_torch_importance import LANDS_UNIFORM
 
@@ -219,16 +219,39 @@ def test_metrics_logger_matches_jax(tmp_path):
     assert MetricsLogger(None).log({"it": 4})["it"] == 4
 
 
-def test_trace_none_and_phase_timers():
-    """``trace(None)`` profiles nothing; the phase timers count and sum."""
+def test_trace_none_and_phase_timers(tmp_path):
+    """``trace(None)`` profiles nothing; ``trace(dir)`` writes the Chrome
+    trace and, beside it, the spans recorded in the block (which took the
+    phase timers' place) on the Unix ns clock; outside it a span records
+    nothing."""
+    import time
+
+    from sqlp_tpu_torch.config import PDHGConfig
+    from sqlp_tpu_torch.ops.pdhg import prepare_lp, solve_batch
     with trace(None) as prof:
         assert prof is None
-    timers = PhaseTimers()
-    for _ in range(3):
-        with timers.phase("a", block_on=torch.zeros(1)):
-            pass
-    s = timers.summary()["a"]
-    assert s["count"] == 3 and s["total_s"] >= 0.0
+    inst = load_instance("lands", dtype=torch.float64, device="cpu")
+    a = inst.arrays
+    lp = prepare_lp(a.W, a.senses2, a.q, a.lb2, a.ub2)
+    t0 = time.time_ns()
+    with trace(str(tmp_path)) as prof:
+        assert prof is not None
+        _, _, _, st = solve_batch(lp, a.r[None, :].repeat(2, 1),
+                                  PDHGConfig(max_iters=240))
+    t1 = time.time_ns()
+    (chrome,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    (path,) = glob.glob(str(tmp_path / "*.spans.json"))
+    assert chrome[:-len(".pt.trace.json")] == path[:-len(".spans.json")]
+    with open(path) as f:
+        got = json.load(f)
+    assert got["clock"] == "unix_ns"
+    sp = got["spans"]
+    assert [s["name"] for s in sp] == \
+        ["pdhg.solve"] + ["pdhg.round"] * st["pdhg_rounds"]
+    assert sp[0]["parent"] == -1 and sp[0]["attrs"]["B"] == 2
+    assert all(s["parent"] == 0 and t0 <= s["start"] <= s["end"] <= t1
+               for s in sp[1:])
+    assert not span("outside")
 
 
 # the CLI on lands at fixed capacities: --resume checks shapes, and
