@@ -80,6 +80,9 @@ COUNTERS = {("halpern", "rows"): "launches",
 # count) by (counter, B, itemsize): which rung of a path went through
 # which variant; chip_smoke.py clears it before driving a path
 launches_by_shape = collections.Counter()
+# restart rounds replayed from a CUDA graph ("replays") and graphs captured
+# ("captures") by ops/pdhg.py:solve_batch in this process
+graph_counts = collections.Counter()
 
 
 def launch_counts() -> dict:
@@ -89,6 +92,26 @@ def launch_counts() -> dict:
     for (counter, _, _), n in launches_by_shape.items():
         out[counter] += n
     return out
+
+
+def count_launch(scheme: str, plan: tuple, B: int, itemsize: int,
+                 n: int = 1) -> None:
+    """Count ``n`` launches of the variant ``plan`` names at [B] in
+    :data:`launches_by_shape`: a replay of a captured round counts its
+    launch, and a capture takes back the one its wrapper counted (a
+    negative ``n``), since nothing ran."""
+    key = (COUNTERS[scheme, plan[0]], B, itemsize)
+    launches_by_shape[key] += n
+    if launches_by_shape[key] == 0:
+        del launches_by_shape[key]
+
+
+def graph_holds(K: torch.Tensor, plan: tuple):
+    """What a launch of ``plan`` reads besides its operands: the padded
+    copy of K that the stream variant takes (:func:`_stream_k`), which a
+    CUDA graph of the launch must keep alive; None for the other variants
+    that a graph takes."""
+    return _stream_k(K)[0] if plan[0] == "stream" else None
 
 _SMEM_BUDGET = 200 * 1024
 _SMEM_MAX = 227 * 1024  # dynamic shared memory one block may use (sm_90)
@@ -833,7 +856,7 @@ def _launch(scheme: str, plan: tuple, K, operands, B: int, m: int, n: int,
         code = fn(*head, *(t if isinstance(t, int) else t.data_ptr()
                            for t in operands), B, m, n, int(n_inner), stream)
     build.check(code, f"{name} {plan}")
-    launches_by_shape[COUNTERS[scheme, plan[0]], B, it] += 1
+    count_launch(scheme, plan, B, it)
 
 
 def pdhg_halpern_round(K, q, lb, ub, is_eq, ht, tau, sig, Y, L, kh, Yanc,

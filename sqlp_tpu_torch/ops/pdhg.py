@@ -16,6 +16,13 @@ plain version on the CPU (ops/cuda/pdhg_kernel.py): ``pdhg_halpern_round``
 under the default Halpern scheme, ``pdhg_average_round`` under
 ``scheme="average"``.
 
+On the card a rung's rounds replay from a CUDA graph (:class:`_RoundGraph`)
+where the round's kernel is one launch on the current stream
+(:func:`graphs_plan`): the kernel and the eager restart logic after it,
+about 60 launches, become one graph launch, and the host read of the
+active count stays. The replayed ops are the eager ones in the same order,
+so every output is the eager round's bit for bit.
+
 Duals come back in the JuMP d(obj)/d(rhs) sign convention ('>=' rows
 >= 0, '<=' rows <= 0) that the cut math is written against.
 """
@@ -23,6 +30,8 @@ Duals come back in the JuMP d(obj)/d(rhs) sign convention ('>=' rows
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,6 +39,7 @@ import torch
 
 from sqlp_tpu_torch.config import PDHGConfig
 from sqlp_tpu_torch.models.stage import SENSE_E, SENSE_L
+from sqlp_tpu_torch.ops.cuda import pdhg_kernel
 from sqlp_tpu_torch.ops.cuda.pdhg_kernel import (pdhg_average_round,
                                                  pdhg_halpern_round)
 from sqlp_tpu_torch.utils.profiling import span
@@ -169,11 +179,100 @@ def _kkt_residuals(lp: PreparedLP, ht: torch.Tensor, Y: torch.Tensor,
     return err, pobj
 
 
+def _round_plan(lp: PreparedLP, rows: int, scheme: str) -> Optional[tuple]:
+    """The plan of a round of ``rows`` on ``lp``'s K, as the kernel
+    wrapper would pick it; None for a CPU K."""
+    if lp.K.device.type != "cuda":
+        return None
+    return pdhg_kernel._plan(rows, lp.m, lp.n, lp.K.element_size(), scheme)
+
+
+def graphs_plan(plan: Optional[tuple]) -> bool:
+    """Whether the restart rounds of a rung whose kernel launch ``plan``
+    names (``pdhg_kernel._plan``; None for CPU tensors, which run the
+    plain version) replay from a CUDA graph: every plan that launches one
+    kernel on the current stream. The grid plan's wrapper enqueues its
+    parts on streams it creates every round, and stays eager."""
+    return plan is not None and plan[0] != "grid"
+
+
+class _RoundGraph:
+    """A restart round of one rung captured as a CUDA graph, with the
+    static buffers it reads and writes: ``el``, the rung's per-element
+    state, and ``ops``, the round's operands (K, lb, ub, is_eq) as the
+    capture saw them. The round ends by copying its new state back into
+    ``el`` and writing the count of rows not done into ``active``, so
+    each replay carries on from the last. ``held`` keeps alive what the
+    kernel reads besides its operands (``pdhg_kernel.graph_holds``)."""
+
+    def __init__(self, el: dict, ops: tuple, scheme: str, plan: tuple):
+        self.el = {k: torch.empty(v.shape, dtype=v.dtype, device=v.device)
+                   for k, v in el.items()}
+        K, lb, ub, is_eq = ops
+        self.ops = (K, torch.empty_like(lb), torch.empty_like(ub), is_eq)
+        self.launch = (scheme, plan, el["done"].shape[0], K.element_size())
+        self.held = pdhg_kernel.graph_holds(K, plan)
+        self.graph = None
+        self.active = None
+
+    def load(self, el: dict, lb: torch.Tensor, ub: torch.Tensor) -> None:
+        """A rung's state and this call's bounds into the buffers."""
+        for k, v in el.items():
+            self.el[k].copy_(v)
+        self.ops[1].copy_(lb)
+        self.ops[2].copy_(ub)
+
+    def capture(self, step, rec) -> None:
+        """Capture ``step`` (one round on the buffers that sets
+        ``active``) on a side stream. Nothing runs, so the launch its
+        kernel wrapper counted is taken back."""
+        dev = self.ops[0].device
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(dev),
+                capture_error_mode="thread_local"):
+            step(self, rec)
+        self.graph = graph
+        pdhg_kernel.count_launch(*self.launch, -1)
+        pdhg_kernel.graph_counts["captures"] += 1
+
+    def replay(self) -> None:
+        """One round, counted as its kernel's launch."""
+        self.graph.replay()
+        pdhg_kernel.count_launch(*self.launch)
+        pdhg_kernel.graph_counts["replays"] += 1
+
+
+# restart-round graphs by PreparedLP: id(lp) -> (a weak reference to lp,
+# lp.K's version, {(rows, scheme, per-element Q, plan, restart_every, tol,
+# stall_rounds, omega_smoothing): _RoundGraph}); an LP's graphs and their
+# memory pools go when it goes or its K changes in place
+_GRAPHS = {}
+
+
+def _forget(lp_id: int, ref) -> None:
+    held = _GRAPHS.get(lp_id)
+    if held is not None and held[0] is ref:
+        del _GRAPHS[lp_id]
+
+
+def _round_graph(lp: PreparedLP, key: tuple, make) -> _RoundGraph:
+    """The graph of ``key`` for ``lp``: ``make()`` the first time."""
+    held = _GRAPHS.get(id(lp))
+    if held is None or held[0]() is not lp or held[1] != lp.K._version:
+        held = (weakref.ref(lp, functools.partial(_forget, id(lp))),
+                lp.K._version, {})
+        _GRAPHS[id(lp)] = held
+    if key not in held[2]:
+        held[2][key] = make()
+    return held[2][key]
+
+
 def solve_batch(lp: PreparedLP, H: torch.Tensor,
                 config: PDHGConfig = PDHGConfig(),
                 Y0: Optional[torch.Tensor] = None,
                 L0: Optional[torch.Tensor] = None,
-                Q: Optional[torch.Tensor] = None
+                Q: Optional[torch.Tensor] = None, *, _eager: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, dict]:
     """Solve the LP for a panel of right-hand sides.
 
@@ -188,16 +287,24 @@ def solve_batch(lp: PreparedLP, H: torch.Tensor,
     ``pdhg.round`` for each restart round (the rung's rows), from the
     return of the host read that admitted it to the return of the next,
     so the rounds of a rung tile its loop, with the stamps ``launched``
-    (the round's kernel enqueued) and ``enqueued`` (the whole round).
+    (the round's kernel enqueued) and ``enqueued`` (the whole round; both
+    at the graph launch's return for a replayed round) and ``graph``
+    (whether it replayed); ``pdhg.capture`` around a graph's capture (the
+    rung's rows), between two rounds.
+
+    On CUDA tensors the rounds replay from a CUDA graph where
+    :func:`graphs_plan` admits the rung's plan; ``_eager=True`` keeps
+    every round eager (the card tests hold the two paths to the same
+    bits).
     """
     with span("pdhg.solve", B=H.shape[0],
               itemsize=lp.K.element_size()) as s:
-        out = _solve_batch(lp, H, config, Y0, L0, Q)
+        out = _solve_batch(lp, H, config, Y0, L0, Q, _eager)
         s.set(rounds=out[3]["pdhg_rounds"])
     return out
 
 
-def _solve_batch(lp, H, config, Y0, L0, Q):
+def _solve_batch(lp, H, config, Y0, L0, Q, eager):
     B, m = H.shape
     n = lp.n
     dtype = lp.K.dtype
@@ -213,15 +320,19 @@ def _solve_batch(lp, H, config, Y0, L0, Q):
                      torch.full_like(lp.ub, _BIG)).contiguous()
     K = lp.K.contiguous()
     is_eq = lp.is_eq.contiguous()
+    ops = (K, lb, ub, is_eq)
     eta = lp.step
     n_rounds = max(1, config.max_iters // config.restart_every)
     halpern = config.scheme == "halpern"
     if config.scheme not in ("halpern", "average"):
         raise ValueError(f"unknown PDHG scheme {config.scheme!r}")
 
-    def round_step(el, rec):
-        """One restart round on a dict of per-element state; ``rec`` is
-        the round's span."""
+    def round_step(el, ops, rec):
+        """One restart round on a dict of per-element state with the
+        operands ``ops`` (K, lb, ub, is_eq); ``rec`` is the round's span.
+        What else it reads is ``lp``'s and the scheme's and ``config``'s,
+        which a graph's key fixes."""
+        K, lb, ub, is_eq = ops
         Qs = el.get("Q")
         tau = eta / el["omega"]
         sig = eta * el["omega"]
@@ -286,6 +397,15 @@ def _solve_batch(lp, H, config, Y0, L0, Q):
             out["Lanc"] = torch.where(r, Lc, el["Lanc"])
         return out
 
+    def graph_step(g, rec):
+        """A round on ``g``'s buffers: its new state copied back into
+        them, the count of rows not done into ``g.active``."""
+        out = round_step(g.el, g.ops, rec)
+        for k, v in out.items():
+            if v is not g.el[k]:
+                g.el[k].copy_(v)
+        g.active = (~g.el["done"]).sum()
+
     if Y0 is None:
         Yi = torch.clamp(torch.zeros((B, n), dtype=dtype, device=dev),
                          lb, ub)
@@ -345,12 +465,39 @@ def _solve_batch(lp, H, config, Y0, L0, Q):
             sub = el
         # one host read per restart round: the loop condition
         go = it < n_rounds and int((~sub["done"]).sum()) > stop
+        plan = _round_plan(lp, size, config.scheme) \
+            if go and not eager else None
+        g = None
+        if graphs_plan(plan):
+            g = _round_graph(lp, (size, config.scheme, "Q" in sub, plan,
+                                  config.restart_every, config.tol,
+                                  config.stall_rounds,
+                                  config.omega_smoothing),
+                             lambda: _RoundGraph(sub, ops, config.scheme,
+                                                 plan))
+            g.load(sub, lb, ub)
         while go:
-            with span("pdhg.round", rows=size) as rec:
-                sub = round_step(sub, rec)
+            with span("pdhg.round", rows=size,
+                      graph=g is not None and g.graph is not None) as rec:
+                if g is None:
+                    sub = round_step(sub, ops, rec)
+                elif g.graph is None:     # the key's first round: eager
+                    graph_step(g, rec)
+                else:
+                    g.replay()
+                    rec.mark("launched")
                 rec.mark("enqueued")
                 it += 1
-                go = it < n_rounds and int((~sub["done"]).sum()) > stop
+                go = it < n_rounds and int(
+                    (~sub["done"]).sum() if g is None else g.active) > stop
+            if go and g is not None and g.graph is None:
+                with span("pdhg.capture", rows=size) as rec:
+                    g.capture(graph_step, rec)
+        if g is not None:
+            # the buffers stay the graph's: hand the scatter (or the
+            # caller) the state, a copy where no scatter follows
+            sub = g.el if compact else {k: v.clone()
+                                         for k, v in g.el.items()}
         phase_rounds.append(it)
         if compact:
             with span("pdhg.compact", rows=size):

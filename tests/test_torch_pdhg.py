@@ -296,3 +296,25 @@ def test_large_panel_runs_compaction_ladder():
     np.testing.assert_array_equal(st["pdhg_valid"].numpy(),
                                   np.asarray(jst["pdhg_valid"]))
     _close(obj.numpy(), jobj, 1e-8)
+
+
+@pytest.mark.parametrize("scheme", ["halpern", "average"])
+def test_cpu_solve_replays_no_graph_and_keeps_the_jax_ladder(scheme):
+    """On the CPU no round replays from a CUDA graph: the B = 2048 lands
+    solve through the compaction ladder captures and replays nothing and
+    counts no kernel launch, and keeps the JAX solve's phase boundaries,
+    certification flags and objectives (to 1e-8 relative)."""
+    from sqlp_tpu_torch.ops.cuda import pdhg_kernel
+    _, lp, jlp, H, _ = _both("lands", 2048, seed=5)
+    cfg = dict(tol=1e-7, max_iters=20_000, scheme=scheme)
+    jobj, _, _, jst = jax_solve_batch(jlp, jnp.asarray(H), JPDHGConfig(**cfg))
+    graphs = dict(pdhg_kernel.graph_counts)
+    launches = dict(pdhg_kernel.launches_by_shape)
+    obj, _, _, st = solve_batch(lp, torch.as_tensor(H), PDHGConfig(**cfg))
+    assert dict(pdhg_kernel.graph_counts) == graphs
+    assert dict(pdhg_kernel.launches_by_shape) == launches
+    np.testing.assert_array_equal(st["pdhg_phase_rounds"],
+                                  np.asarray(jst["pdhg_phase_rounds"]))
+    np.testing.assert_array_equal(st["pdhg_valid"].numpy(),
+                                  np.asarray(jst["pdhg_valid"]))
+    _close(obj.numpy(), jobj, 1e-8)
